@@ -1,0 +1,13 @@
+"""repro_torch: the volunteer-computing swarm of `repro`, on PyTorch and
+CUDA for an NVIDIA H100.
+
+A port of the JAX package `repro` (Soelistio 2015: P2P torrent-like
+application distribution in a volunteer-computing environment) that
+mirrors its module tree and never imports jax.  Its hot path is the
+batched flash-crowd loop (`scenarios.scenario_vii` / `scenario_ix` ->
+`core.runtime.SimRuntime.run_batched` -> `core.swarm_arrays.SwarmHub.tick`
+-> `core.swarm_kernels`), whose three kernels are hand-written CUDA for
+Hopper in `csrc/`.  Entry points take `device=` ("cuda" by default,
+"cpu" for the plain PyTorch versions).
+"""
+__version__ = "0.1.0"

@@ -1,0 +1,99 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+`csrc/swarm_kernels.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into a
+shared library with a plain C interface under ``build/repro_torch/`` at
+the repository root, at first use, and loaded with ctypes.  The library's
+file name carries a hash of the source and the flags, so an edited source
+is rebuilt and a stale library is never loaded.  A failed build raises:
+nothing falls back to the plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent
+SOURCES = (_PKG / "csrc" / "swarm_kernels.cu",)
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+BUILD_INFO = {"seconds": None, "path": None, "log": ""}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "rarest_keys_launch": (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P,
+                           _P),
+    "island_has_launch": (_P, _P, _I, _I, _I, _P, _P),
+    "match_requests_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _P, _I, _I, _P, _P),
+}
+
+
+def find_nvcc() -> Optional[str]:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    return str(default) if default.exists() else None
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(nvcc: Optional[str] = None,
+          build_dir: Optional[Path] = None) -> Path:
+    """Compile the kernel library (or reuse a build of the same sources)
+    and return its path.  Raises RuntimeError when nvcc is missing or the
+    compile fails."""
+    nvcc = nvcc or find_nvcc()
+    if nvcc is None or not Path(nvcc).exists():
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of repro_torch are built "
+            "from csrc/ with nvcc for sm_90a")
+    out_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"libswarm_kernels_{_digest()}.so"
+    if lib.exists():
+        BUILD_INFO.update(seconds=0.0, path=str(lib), log="cached")
+        return lib
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    BUILD_INFO.update(seconds=seconds, path=str(lib),
+                      log=(proc.stdout + proc.stderr).strip())
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

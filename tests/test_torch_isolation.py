@@ -1,0 +1,128 @@
+"""`repro_torch` stands alone: it imports neither jax nor the reference
+package, its entry points run on the card unless the caller asks for the
+CPU, and a CUDA-path request never falls back to the plain versions."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
+
+
+def _port_modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT / "src").with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts)
+
+
+def test_import_all_of_repro_torch_without_jax_or_reference():
+    """With jax blocked, every module of the port imports, and no module
+    of the reference package gets loaded."""
+    script = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        f"mods = {list(_port_modules())!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'repro' or "
+        "m.startswith('repro.') or m == 'benchmarks' or "
+        "m.startswith('benchmarks.'))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.strip()) >= 17
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_import_of_jax_or_reference(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_hub_defaults_to_cuda_and_raises_without_it():
+    from repro_torch.core.swarm_arrays import SwarmHub
+    if torch.cuda.is_available():
+        assert SwarmHub().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        SwarmHub()
+    with pytest.raises(RuntimeError, match="cuda"):
+        from repro_torch.scenarios import scenario_vii
+        scenario_vii(verbose=False, n_volunteers=4, batched=True)
+    assert SwarmHub(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("device", ["tpu", "meta"])
+def test_unknown_devices_raise(device):
+    from repro_torch.core.swarm_arrays import SwarmHub
+    with pytest.raises((ValueError, RuntimeError)):
+        SwarmHub(device=device)
+
+
+def test_wrappers_refuse_other_devices():
+    from repro_torch.core import swarm_kernels as sk
+    counts = torch.zeros(4, dtype=torch.int64, device="meta")
+    offsets = torch.zeros(2, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sk.rarest_keys(counts, offsets, 4)
+    with pytest.raises(ValueError, match="mixed devices"):
+        sk.rarest_keys(torch.zeros(4, dtype=torch.int64), offsets, 4)
+
+
+def test_launchers_take_only_cuda_tensors():
+    """The launch half of each wrapper refuses CPU tensors: only the
+    public function routes a CPU tensor to the plain version."""
+    from repro_torch.core import swarm_kernels as sk
+    before = dict(sk.LAUNCHES)
+    c = torch.zeros(4, dtype=torch.int64)
+    o = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        sk._launch_rarest_keys(c, o, 4, None, None, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        sk._launch_island_has(torch.zeros((3, 4), dtype=torch.uint8),
+                              torch.zeros((2, 3), dtype=torch.uint8))
+    i32 = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        sk._launch_match_requests(
+            i32, torch.zeros(2, dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32),
+            torch.zeros((2, 3), dtype=torch.int32),
+            torch.zeros((2, 3), dtype=torch.uint8),
+            torch.zeros((2, 3), dtype=torch.int32),
+            torch.zeros((5, 4), dtype=torch.uint8),
+            torch.zeros(5, dtype=torch.uint8))
+    assert sk.LAUNCHES == before
+
+
+def test_build_without_nvcc_raises(tmp_path):
+    """A CUDA-path request with no way to build the library raises: there
+    is no fallback to the plain versions."""
+    from repro_torch import kernels_build
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels_build.build(nvcc=str(tmp_path / "no-nvcc"),
+                            build_dir=tmp_path / "build")
+    assert not (tmp_path / "build").exists()

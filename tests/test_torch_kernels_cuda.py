@@ -1,0 +1,147 @@
+"""The compiled CUDA kernels of `repro_torch` against their plain PyTorch
+versions on the same CUDA tensors, over randomized shapes beyond the main
+path's (odd piece counts, empty rows, the (R, C) scratch path of the
+matcher), plus the torch-op functions on CUDA against the same ops on the
+CPU, and a small batched flash crowd on the card against the CPU path.
+
+These tests need an NVIDIA card and nvcc; they skip elsewhere.  Run them
+on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def sk():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import kernels_build
+    if kernels_build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build the kernels")
+    from repro_torch.core import swarm_kernels
+    return swarm_kernels
+
+
+def G(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_rarest_keys_kernel_matches_plain(sk, seed):
+    rs = np.random.default_rng(seed)
+    for _ in range(10):
+        R, P = int(rs.integers(1, 60)), int(rs.integers(1, 300))
+        counts = G(rs.integers(0, 10_001, P))
+        offsets = G(rs.integers(0, 100_000, R))
+        missing = G(rs.random((R, P)) < 0.5)
+        cost = G(rs.choice([0, 1, 15, 64], (R, P)))
+        span = (int(counts.max()) + 1) * P * P
+        n0 = sk.LAUNCHES["rarest_keys"]
+        for kw in ({}, {"missing": missing},
+                   {"missing": missing, "piece_cost": cost, "span": span}):
+            got = sk.rarest_keys(counts, offsets, P, **kw)
+            want = sk.rarest_keys_plain(counts, offsets, P, **kw)
+            assert torch.equal(got, want)
+        assert sk.LAUNCHES["rarest_keys"] == n0 + 3
+        got = sk.cost_orders(missing, counts, offsets, cost, P)
+        want = torch.sort(sk.rarest_keys_plain(
+            counts, offsets, P, missing=missing, piece_cost=cost,
+            span=span), dim=1, stable=True).indices.int()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_island_has_kernel_matches_plain(sk, seed):
+    rs = np.random.default_rng(10 + seed)
+    for _ in range(10):
+        N, K, P = (int(rs.integers(1, 3000)), int(rs.integers(1, 12)),
+                   int(rs.integers(1, 200)))
+        have = G(rs.random((N, P)) < rs.choice([0.001, 0.05, 0.5]))
+        member = np.zeros((K, N), dtype=np.uint8)
+        member[rs.integers(0, K, N), np.arange(N)] = 1
+        member = G(member)
+        assert torch.equal(sk.island_has(have, member),
+                           sk.island_has_plain(have, member))
+
+
+def _match_case(rs, R, P, N, C):
+    cand = np.stack([rs.choice(N, C, replace=C > N) for _ in range(R)])
+    pad = rs.random((R, C)) < 0.1
+    cand = np.where(pad, -1, cand).astype(np.int32)
+    ok = (rs.random((R, C)) < 0.8) & ~pad
+    key = rs.integers(0, 1 << 26, (R, C)).astype(np.int32)
+    return (G(np.stack([rs.permutation(P) for _ in range(R)])
+              .astype(np.int32)),
+            G(rs.integers(0, P + 2, R).astype(np.int32)),
+            G(rs.integers(-1, 8, R).astype(np.int32)), G(cand), G(ok),
+            G(key), G((rs.random((N, P)) < 0.3).astype(np.uint8)),
+            G((rs.random(N) < 0.02).astype(np.uint8)))
+
+
+@pytest.mark.parametrize("C", [1, 7, 33, 200, 2048, 13_000])
+def test_match_requests_kernel_matches_plain(sk, C):
+    rs = np.random.default_rng(C)
+    for _ in range(3):
+        R, P = int(rs.integers(1, 300)), int(rs.integers(1, 100))
+        args = _match_case(rs, R, P, max(C, 50), C)
+        assert torch.equal(sk.match_requests(*args),
+                           sk.match_requests_plain(*args))
+
+
+def test_match_requests_scratch_path_matches_plain(sk):
+    """C above the shared-memory limit moves the taken flags to an (R, C)
+    scratch in device memory."""
+    rs = np.random.default_rng(99)
+    C = sk._SMEM_LIMIT + 1000
+    args = _match_case(rs, 6, 16, C + 10, C)
+    got = sk.match_requests(*args)
+    assert torch.equal(got, sk.match_requests_plain(*args))
+    assert int((got >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_torch_ops_on_cuda_match_cpu(sk, seed):
+    rs = np.random.default_rng(50 + seed)
+    H, C = int(rs.integers(1, 40)), int(rs.integers(1, 300))
+    rates = np.array([0.0, 0.0, 1.5, 7.25, 100.0], dtype=np.float32)
+    recv = rates[rs.integers(0, 5, (H, C))]
+    sent = rates[rs.integers(0, 5, (H, C))]
+    cand = rs.random((H, C)) < 0.6
+    ranks = rs.integers(0, 4, (H, C)) * 2 ** 20 + rs.permutation(C)
+    got = sk.choke_order(G(recv), G(sent), G(cand), G(ranks)).cpu()
+    want = sk.choke_order(*(torch.from_numpy(a) for a in
+                            (recv, sent, cand, ranks)))
+    assert torch.equal(got, want)
+    n, p = int(rs.integers(1, 500)), int(rs.integers(1, 80))
+    keys = np.where(rs.random((n, p)) < 0.5,
+                    rs.permutation(n * p).reshape(n, p),
+                    int(sk.KEY_INF32)).astype(np.int32)
+    for k in (1, 7, n + 3):
+        assert torch.equal(sk.holder_topk(G(keys), k).cpu(),
+                           sk.holder_topk(torch.from_numpy(keys), k))
+
+
+def test_small_flash_crowd_on_cuda_matches_cpu(sk):
+    from repro_torch.scenarios import scenario_ix, scenario_vii
+    keys = ("events", "makespan_s", "full_replication_s", "origin_up_mb")
+    a = scenario_vii(verbose=False, n_volunteers=24, batched=True,
+                     device="cuda")
+    b = scenario_vii(verbose=False, n_volunteers=24, batched=True,
+                     device="cpu")
+    assert a["device"].startswith("cuda")
+    assert {k: a[k] for k in keys} == {k: b[k] for k in keys}
+    n0 = sk.LAUNCHES["island_has"]
+    a = scenario_ix(verbose=False, n_volunteers=24, n_islands=3,
+                    device="cuda")
+    b = scenario_ix(verbose=False, n_volunteers=24, n_islands=3,
+                    device="cpu")
+    assert sk.LAUNCHES["island_has"] > n0
+    for arm in ("naive", "p4p"):
+        assert {k: a[arm][k] for k in keys + ("cross_isp_bytes",)} == \
+            {k: b[arm][k] for k in keys + ("cross_isp_bytes",)}
