@@ -4,15 +4,26 @@
     python3 chip_smoke.py
 
 1. builds the port's CUDA kernels (`src/repro_torch/csrc/`) with nvcc
-   into `build/repro_torch/`;
-2. holds each kernel (`rarest_keys`, `island_has`, `match_requests`)
-   against its plain PyTorch version on CUDA tensors at the main path's
-   shapes, exactly, and times it on the card;
-3. drives the main path — the batched flash-crowd loop, Scenario VII at
-   N=2000 and Scenario IX at N=500 with 8 islands (both arms) — on the
-   card, checks that every kernel launched during it, and checks every
-   virtual-time result against `src/repro_torch/reference_runs.json`
-   (the reference package's values under PYTHONHASHSEED=0);
+   into `build/repro_torch/`, one nvcc per source, all started together;
+2. swarm slice: holds each swarm kernel (`rarest_keys`, `island_has`,
+   `match_requests`) against its plain PyTorch version on CUDA tensors at
+   the main path's shapes, exactly, and times it; drives the batched
+   flash-crowd loop (Scenario VII at N=2000, Scenario IX at N=500 with 8
+   islands, both arms) on the card, checks that every swarm kernel
+   launched during it, and checks every virtual-time result against
+   `src/repro_torch/reference_runs.json` (the reference package's values
+   under PYTHONHASHSEED=0);
+3. serve slice: holds `flash_fwd` and `ssd_scan` against their plain
+   versions (the reference's kernel-test cases and the serve path's
+   shapes) and times them beside `scaled_dot_product_attention`; runs
+   zamba2-7b at full width cut to 7 layers in f32 against
+   `src/repro_torch/reference_serve.json` (the reference package's
+   prefill and decode logits); drives zamba2-7b at full depth and width in
+   bf16 (B=4, S=2048 prefill, 32 decode steps) through `make_prefill_step`
+   / `make_decode_step`, checks that each prefill launched `ssd_scan` 81
+   and `flash_fwd` 13 times, and holds its logits to the plain torch
+   paths; serves 4 requests through `ServingEngine` on the f32 model and
+   holds each to a full-forward greedy decode;
 4. prints the per-kernel JSON line, the card's name and power limit, and
    as the last line `{"ok": true, "device": {...}}`.
 
@@ -34,14 +45,41 @@ RUNS_FILE = SRC / "repro_torch" / "reference_runs.json"
 CHIP_RUNS = ("vii_n2000", "ix_n500_i8")
 METRICS = ("events", "makespan_s", "full_replication_s", "p99_completion_s",
            "cross_isp_bytes", "origin_up_mb", "replicas")
+SERVE_FILE = SRC / "repro_torch" / "reference_serve.json"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT_OPS_PER_S = 67e12           # non-tensor-core rate (the fp32 table row)
-KERNEL_SOURCE = "src/repro_torch/csrc/swarm_kernels.cu"
+F32_OPS_PER_S = 67e12           # fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # bf16 / fp16 tensor cores, dense
+SOURCES = {
+    "rarest_keys": "src/repro_torch/csrc/swarm_kernels.cu",
+    "island_has": "src/repro_torch/csrc/swarm_kernels.cu",
+    "match_requests": "src/repro_torch/csrc/swarm_kernels.cu",
+    "flash_fwd": "src/repro_torch/csrc/flash_fwd.cu",
+    "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+}
 REPLACES = {
     "rarest_keys": "src/repro/core/swarm_kernels.py:112",
     "island_has": "src/repro/core/swarm_kernels.py:221",
     "match_requests": "src/repro/core/swarm_kernels.py:487",
+    "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:90",
+    "ssd_scan": "src/repro/kernels/ssd/kernel.py:80",
 }
+# the reference's kernel-test cases (tests/test_kernels.py)
+FLASH_CASES = [
+    # B, Sq, Skv, Hq, Hkv, D, causal, window
+    (2, 128, 128, 4, 2, 32, True, 0),
+    (1, 100, 100, 4, 4, 16, True, 0),
+    (2, 128, 128, 8, 2, 32, True, 24),
+    (2, 64, 128, 4, 2, 16, False, 0),
+    (1, 256, 256, 2, 1, 64, True, 0),
+]
+SSD_CASES = [
+    # B, S, H, P, G, N, chunk
+    (2, 64, 4, 16, 1, 16, 16),
+    (1, 96, 2, 32, 1, 8, 32),
+    (2, 128, 4, 16, 2, 16, 64),
+    (1, 50, 2, 16, 1, 16, 16),
+]
 
 
 def log(msg):
@@ -268,6 +306,555 @@ def end_to_end_phase(torch, sk, scenarios):
             fail(f"{name}: card results differ from reference_runs.json")
 
 
+# ====================== serve slice: kernel phase ======================= #
+def live_pairs(Sq, Skv, causal, window):
+    """(query, key) pairs alive under the mask: the work attention needs."""
+    n = 0
+    for qpos in range(Sq):
+        hi = min(Skv - 1, qpos) if causal else Skv - 1
+        lo = max(0, qpos - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def ssd_ops(B, S, H, P, N, chunk):
+    """FLOP of the chunked scan over the real steps: per chunk of Lc steps
+    the causal half of C B^T and of its product with x dt, Lc(Lc+1)(N+P),
+    plus the state's read and update, 4 Lc N P."""
+    L = min(chunk, S)
+    ops = 0
+    for t0 in range(0, S, L):
+        lc = min(L, S - t0)
+        ops += lc * (lc + 1) * (N + P) + 4 * lc * N * P
+    return ops * B * H
+
+
+def model_kernel_phase(torch):
+    """`flash_fwd` and `ssd_scan` against their plain versions on CUDA
+    tensors: the reference's kernel-test cases, then the serve path's
+    shapes (timed; the last record of each kernel is the reported one)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as ssk
+    rs = np.random.default_rng(2024)
+    records = {}
+
+    def up(shape, dtype, scale=1.0):
+        a = (rs.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).cuda().to(dtype)
+
+    def check(name, case, got, want, tol, what, relative=False):
+        """max |got - want| within tol (of max |want| when relative)."""
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max()) if relative else 1.0
+        if not err <= tol * scale:
+            fail(f"{name} [{case}] {what} off by {err:.3e} > {tol:.1e}"
+                 f"{' of max ' + str(scale) if relative else ''} from its "
+                 "plain version")
+        records.setdefault(name, []).append(
+            {"case": case, "max_abs_err": err})
+        log(f"[kernel] {name} {case}: {what} max abs err {err:.3e} "
+            f"(tolerance {tol:.0e}{' of max ' + f'{scale:.3f}' if relative else ''})")
+
+    def timed(name, kernel, plain, n_bytes, n_ops, peak, library=None):
+        ms = device_ms(kernel, reps=10, inner=3)
+        ms_call = call_ms(kernel, reps=10)
+        plain_ms = call_ms(plain, reps=5)
+        lib_ms = device_ms(library, reps=10, inner=3) if library else None
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / peak * 1e3
+        b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                      else (t_ops, "operations"))
+        rec = records[name][-1]
+        rec.update(ms=ms, call_ms=ms_call, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms, bytes=n_bytes,
+                   ops=n_ops)
+        log(f"[kernel] {name} {rec['case']}: ms={ms:.4f} (one call as "
+            f"issued {ms_call:.4f}) plain_ms={plain_ms:.3f} bytes={n_bytes} "
+            f"ops={n_ops} bound_ms={b_ms:.4f} ({b_by})"
+            + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""))
+
+    # ---- flash_fwd ------------------------------------------------------ #
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for B, Sq, Skv, Hq, Hkv, D, causal, window in FLASH_CASES:
+            q, k, v = (up(s, dtype) for s in ((B, Sq, Hq, D),
+                                              (B, Skv, Hkv, D),
+                                              (B, Skv, Hkv, D)))
+            out, lse = fk.flash_fwd(q, k, v, causal=causal, window=window)
+            want, wlse = fk.flash_fwd_plain(q, k, v, causal=causal,
+                                            window=window)
+            case = f"{(B, Sq, Skv, Hq, Hkv, D, causal, window)} {dtype}"
+            check("flash_fwd", case, out, want, tol, "out")
+            check("flash_fwd", case, lse, wlse,
+                  1e-4 if dtype == torch.float32 else 2e-2, "lse")
+    B, S, H, D = 4, 2048, 32, 112
+    q, k, v = (up((B, S, H, D), torch.bfloat16) for _ in range(3))
+    out, lse = fk.flash_fwd(q, k, v, causal=True)
+    want, _ = fk.flash_fwd_plain(q, k, v, causal=True)
+    check("flash_fwd", f"B={B} S={S} H={H} D={D} causal bf16", out, want,
+          2e-2, "out")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    timed("flash_fwd",
+          lambda: fk.flash_fwd(q, k, v, causal=True),
+          lambda: fk.flash_fwd_plain(q, k, v, causal=True),
+          4 * q.numel() * q.element_size() + lse.numel() * 4,
+          4 * B * H * D * live_pairs(S, S, True, 0), BF16_OPS_PER_S,
+          library=lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True))
+    del q, k, v, qt, kt, vt, out, lse, want
+
+    # ---- ssd_scan -------------------------------------------------------- #
+    def ssd_inputs(B, S, H, P, G, N, dtype):
+        x = up((B, S, H, P), dtype)
+        dt = torch.nn.functional.softplus(up((B, S, H), torch.float32))
+        A = -torch.exp(up((H,), torch.float32, 0.3))
+        return (x, dt.contiguous(), A.contiguous(),
+                up((B, S, G, N), dtype, 0.5), up((B, S, G, N), dtype, 0.5))
+
+    for B, S, H, P, G, N, chunk in SSD_CASES:
+        args = ssd_inputs(B, S, H, P, G, N, torch.float32)
+        y, fin = ssk.ssd_scan(*args, chunk=chunk)
+        wy, wfin = ssk.ssd_scan_plain(*args, chunk=chunk)
+        case = f"{(B, S, H, P, G, N, chunk)} f32"
+        check("ssd_scan", case, y, wy, 1e-3, "y")
+        check("ssd_scan", case, fin, wfin, 1e-3, "state")
+    B, S, H, P, G, N, chunk = 4, 2048, 112, 64, 1, 64, 256
+    args = ssd_inputs(B, S, H, P, G, N, torch.bfloat16)
+    y, fin = ssk.ssd_scan(*args, chunk=chunk)
+    wy, wfin = ssk.ssd_scan_plain(*args, chunk=chunk)
+    case = f"B={B} S={S} H={H} P={P} G={G} N={N} chunk={chunk} bf16"
+    check("ssd_scan", case, y, wy, 1e-2, "y", relative=True)
+    check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
+    timed("ssd_scan",
+          lambda: ssk.ssd_scan(*args, chunk=chunk),
+          lambda: ssk.ssd_scan_plain(*args, chunk=chunk),
+          sum(t.numel() * t.element_size() for t in (*args, y, fin)),
+          ssd_ops(B, S, H, P, N, chunk), BF16_OPS_PER_S)
+    return records
+
+
+# ================= serve slice: against the reference =================== #
+def model_launches():
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as ssk
+    return {**fk.LAUNCHES, **ssk.LAUNCHES}
+
+
+def reset_model_launches():
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as ssk
+    fk.reset_launches()
+    ssk.reset_launches()
+
+
+def layer_counts(cfg):
+    n_ssd = sum(g.repeat * sum(ls.mixer == "ssd" for ls in g.layers)
+                for g in cfg.groups)
+    n_attn = sum(g.repeat * sum(ls.shared_attn for ls in g.layers)
+                 for g in cfg.groups)
+    return n_ssd, n_attn
+
+
+def serve_reference_phase(torch, device="cuda"):
+    """zamba2-7b at full width, cut to 7 layers, f32 with the kernels,
+    against the reference package's prefill and decode logits."""
+    import numpy as np
+    from repro_torch.configs.base import GroupSpec, LayerSpec, get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.parallel.sharding import (init_params,
+                                               init_params_numpy,
+                                               tree_leaves_with_path)
+    ref = json.loads(SERVE_FILE.read_text())
+    groups = tuple(GroupSpec(tuple(LayerSpec(*ls) for ls in layers), r)
+                   for layers, r in ref["groups"])
+    cfg = get_config(ref["arch"]).replace(dtype=ref["dtype"],
+                                          use_pallas=True, groups=groups)
+    specs = M.model_param_specs(cfg)
+    t0 = time.perf_counter()
+    tree = init_params_numpy(ref["seed"], specs)
+    for path, a in tree_leaves_with_path(tree):
+        want = ref["weight_abs_sums"].get(path)
+        if want is not None and abs(float(np.sum(np.abs(a),
+                                                 dtype=np.float64))
+                                    - want) > 1e-9 * want:
+            fail(f"weights drawn here differ from the reference's: {path}")
+    params = params_from_reference(tree, specs, device=device)
+    del tree
+    log(f"[serve-ref] {ref['arch']} {len(ref['groups'])} groups, "
+        f"{M.count_params(cfg)} params drawn and loaded in "
+        f"{time.perf_counter() - t0:.1f}s")
+    n_prompt, n_dec = len(ref["prompt"]), ref["decode_steps"]
+    caches = init_params(0, M.cache_specs_tree(cfg, 1, n_prompt + n_dec),
+                         device=device)
+    idx = torch.tensor(ref["logit_index"], device=device)
+    tol = ref["tolerance"]
+    reset_model_launches()
+    t0 = time.perf_counter()
+    worst = 0.0
+    with torch.no_grad():
+        logits, caches = M.prefill(
+            cfg, params, {"tokens": torch.tensor([ref["prompt"]],
+                                                 dtype=torch.int32,
+                                                 device=device)}, caches)
+        for i, step in enumerate(ref["steps"]):
+            lg = logits[0].float()
+            tok = int(torch.argmax(lg))
+            max_abs = float(lg.abs().max())
+            err = float(np.max(np.abs(lg[idx].cpu().numpy()
+                                      - np.asarray(step["values"]))))
+            rel = max(err, abs(max_abs - step["max_abs"])) / step["max_abs"]
+            worst = max(worst, rel)
+            log(f"[serve-ref] step {i}: token {tok} (reference "
+                f"{step['token']}) max|logit| {max_abs:.5f} (reference "
+                f"{step['max_abs']:.5f}) err {rel:.2e} of max|logit|")
+            if tok != step["token"] or rel > tol:
+                fail(f"7-layer zamba2 step {i} differs from "
+                     "reference_serve.json")
+            if i == n_dec:
+                break
+            logits, caches = M.decode_step(
+                cfg, params, {"tokens": torch.tensor(
+                    [[step["token"]]], dtype=torch.int32, device=device)},
+                caches)
+    launched = model_launches()
+    n_ssd, n_attn = layer_counts(cfg)
+    want = ({"flash_fwd": n_attn, "ssd_scan": n_ssd} if device == "cuda"
+            else {"flash_fwd": 0, "ssd_scan": 0})
+    if launched != want:
+        fail(f"7-layer prefill launched {launched}, expected {want}")
+    log(f"[serve-ref] matches reference_serve.json (worst {worst:.2e} of "
+        f"max|logit| <= {tol}) in {time.perf_counter() - t0:.1f}s, "
+        f"launches {json.dumps(launched)}")
+    return worst
+
+
+# ===================== serve slice: the full model ====================== #
+def sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def profile_step(torch, what, fn):
+    """Device time of one call by kernel class, from torch.profiler's
+    kernel events, beside the host clock around it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    sums = {"ssd_scan": 0.0, "flash_fwd": 0.0, "gemm": 0.0, "other": 0.0}
+    names, n = {}, 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        ms = evt.time_range.elapsed_us() / 1e3
+        name = evt.name
+        low = name.lower()
+        n += 1
+        names[name] = names.get(name, 0.0) + ms
+        if "ssd_scan_kernel" in low:
+            sums["ssd_scan"] += ms
+        elif "flash_fwd_kernel" in low:
+            sums["flash_fwd"] += ms
+        elif any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet",
+                                    "cublas")):
+            sums["gemm"] += ms
+        else:
+            sums["other"] += ms
+    busy = sum(sums.values())
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[profile] {what}: wall_ms={wall:.1f} (under the profiler) "
+        f"kernels={n} device_ms={busy:.1f} "
+        f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}; top "
+        f"{json.dumps([(k[:60], round(v, 3)) for k, v in top])}")
+
+
+def condition_attention(cfg, params):
+    """Scale the shared attention's projections to a fan-in of d_model for
+    wq/wk/wv and of heads*head_dim for wo.  The reference's init rule takes
+    shape[-2] of a rank-3 weight as its fan-in, the head count here, so
+    q/k/v come out ~10x too large, the softmax saturates and the random
+    model amplifies any rounding difference ~10x per attention
+    application (13 of them): no two implementations then agree end to
+    end.  Returns the same tree, scaled in place."""
+    a = params["shared_attn"]["attn"]
+    heads = cfg.shared_attn_heads or cfg.num_heads
+    for name in ("wq", "wk", "wv"):
+        a[name].mul_((heads / cfg.d_model) ** 0.5)
+    a["wo"].mul_((1.0 / heads) ** 0.5)
+    return params
+
+
+def layerwise_prefill_check(torch, params, cfg, prompts, cache_len, tol):
+    """Each of the model's layers on the same input through the kernels and
+    through the plain torch paths (teacher-forced at the layer: the next
+    layer's input is the kernel path's output); holds each layer's output
+    and the caches it writes within ``tol`` of the plain path's max."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params
+    ck, cp = cfg.replace(use_pallas=True), cfg.replace(use_pallas=False)
+    B, S = prompts.shape
+    dev = prompts.device
+    worst = {"out": 0.0, "ssm": 0.0, "shared_kv": 0.0}
+    with torch.no_grad():
+        x = L.embed_tokens(params["embed"], prompts, cfg)
+        pos = torch.broadcast_to(torch.arange(S, device=dev), (B, S))
+        aux = torch.zeros((), device=dev)
+        for gi, g in enumerate(cfg.groups):
+            gp = params["decoder"][f"g{gi}"]
+            for r in range(g.repeat):
+                ps = M._index_tree(gp, r)
+                for li, ls in enumerate(g.layers):
+                    spec = M.layer_cache_specs(cfg, ls, B, cache_len)
+                    outs = []
+                    for c in (ck, cp):
+                        cache = init_params(0, spec, device=dev)
+                        y, _, nc = M.apply_layer(
+                            c, ls, ps[f"L{li}"], x, aux,
+                            shared_params=params.get("shared_attn"),
+                            mode="prefill", positions=pos, cache=cache)
+                        outs.append((y, nc))
+                    (yk, ncs), (yp, ncp) = outs
+
+                    def rel(a, b):
+                        return float((a.float() - b.float()).abs().max()
+                                     / b.float().abs().max().clamp_min(1e-30))
+
+                    errs = {"out": rel(yk, yp), "ssm": rel(ncs["ssm"],
+                                                            ncp["ssm"])}
+                    if ls.shared_attn:
+                        errs["shared_kv"] = max(
+                            rel(ncs["shared_k"], ncp["shared_k"]),
+                            rel(ncs["shared_v"], ncp["shared_v"]))
+                    for k, v in errs.items():
+                        worst[k] = max(worst[k], v)
+                    if max(errs.values()) > tol:
+                        fail(f"layer g{gi} repeat {r} L{li}: the kernel "
+                             f"path differs from the plain path by "
+                             f"{json.dumps(errs)} > {tol}")
+                    x = yk
+    return worst
+
+
+def full_model_phase(torch, params, cfg, prompts, device="cuda",
+                     n_decode=32):
+    """zamba2-7b at full depth and width in bf16 through the serve steps,
+    with the kernels' launches counted over this run only; then the kernel
+    path against the plain torch paths: layer by layer over the bf16
+    prefill, and end to end (prefill + teacher-forced decode) in f32.
+    ``params`` are the f32 master weights; the bf16 runs use a bf16 copy.
+    (``cfg`` and ``device`` let it be rehearsed small on the CPU.)"""
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.training.train_state import (make_decode_step,
+                                                  make_prefill_step)
+    cfg16 = cfg.replace(dtype="bfloat16", use_pallas=True)
+    cfg32 = cfg.replace(dtype="float32", use_pallas=True)
+    n_ssd, n_attn = layer_counts(cfg)
+    on_card = device == "cuda"
+
+    def cast(tree):
+        return ({k: cast(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.to(torch.bfloat16))
+
+    params16 = cast(params)
+    B, S = prompts.shape
+    cache_len = S + n_decode
+    prefill_step = make_prefill_step(cfg16)
+    decode_step = make_decode_step(cfg16)
+
+    def fresh_caches(c):
+        return init_params(0, M.cache_specs_tree(c, B, cache_len),
+                           device=device)
+
+    # warm-up (library handles, kernel attributes) on a shorter prompt
+    prefill_step(params16, {"tokens": prompts[:, :S // 2 + 76]},
+                 fresh_caches(cfg16))
+    sync(torch, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counted and timed ------------------------------- #
+    reset_model_launches()
+    caches = fresh_caches(cfg16)
+    sync(torch, device)
+    t0 = time.perf_counter()
+    tok, caches = prefill_step(params16, {"tokens": prompts}, caches)
+    sync(torch, device)
+    prefill_s = time.perf_counter() - t0
+    per_prefill = model_launches()
+    want = ({"flash_fwd": n_attn, "ssd_scan": n_ssd} if on_card
+            else {"flash_fwd": 0, "ssd_scan": 0})
+    if per_prefill != want:
+        fail(f"the prefill launched {per_prefill}, expected {want}")
+    toks = [tok]
+    t0 = time.perf_counter()
+    for _ in range(n_decode):
+        tok, caches = decode_step(params16, {"tokens": tok[:, None]}, caches)
+        toks.append(tok)
+    sync(torch, device)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_decode
+    launches = model_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0
+    log(f"[full] zamba2-7b bf16, {M.count_params(cfg)} params ({n_ssd} SSD "
+        f"layers, {n_attn} shared-attention applications): prefill B={B} "
+        f"S={S} {prefill_s:.3f}s = {B * S / prefill_s:.0f} tokens/s; decode "
+        f"{decode_ms:.2f} ms/step over {n_decode} steps (B={B}); peak "
+        f"memory {peak_gb:.2f} GiB (with the f32 master weights); launches "
+        f"{json.dumps(launches)}")
+    if on_card:
+        profile_step(torch, "bf16 prefill", lambda: prefill_step(
+            params16, {"tokens": prompts}, fresh_caches(cfg16)))
+        profile_step(torch, "bf16 decode step", lambda: decode_step(
+            params16, {"tokens": toks[-1][:, None]}, caches))
+    del caches
+
+    # ---- kernels against the plain paths -------------------------------- #
+    t0 = time.perf_counter()
+    worst = layerwise_prefill_check(torch, params16, cfg16, prompts,
+                                    cache_len, 2e-2)
+    log(f"[full] bf16 prefill, layer by layer on the same inputs: kernels "
+        f"vs plain torch paths worst {json.dumps(worst)} of the plain "
+        f"path's max (tolerance 2e-2) in {time.perf_counter() - t0:.1f}s")
+
+    def logits_run(c, p):
+        caches, out = fresh_caches(c), []
+        with torch.no_grad():
+            lg, caches = M.prefill(c, p, {"tokens": prompts}, caches)
+            out.append(lg.float())
+            for i in range(n_decode):
+                lg, caches = M.decode_step(
+                    c, p, {"tokens": toks[i][:, None]}, caches)
+                out.append(lg.float())
+        return torch.stack(out)
+
+    def rel(a, b):
+        """worst step's max |a - b| over max |b|"""
+        return max((a - b).abs().amax(dim=(1, 2))
+                   / b.abs().amax(dim=(1, 2))).item()
+
+    def agree(a, b):
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    lk16 = logits_run(cfg16, params16)
+    if not torch.equal(lk16.argmax(-1).int(), torch.stack(toks)):
+        fail("the kernels' logits do not give the served tokens")
+    if not bool(torch.isfinite(lk16).all()):
+        fail("non-finite bf16 logits")
+    lp16 = logits_run(cfg16.replace(use_pallas=False), params16)
+    del params16
+    lk32 = logits_run(cfg32, params)
+    lp32 = logits_run(cfg32.replace(use_pallas=False), params)
+    r32 = rel(lk32, lp32)
+    log(f"[full] end to end over prefill + {n_decode} teacher-forced steps, "
+        f"kernels vs plain torch paths: f32 {r32:.3e} of max|logit| "
+        f"(greedy tokens agree {agree(lk32, lp32):.3f}); bf16 "
+        f"{rel(lk16, lp16):.3e} ({agree(lk16, lp16):.3f}); bf16 against "
+        f"f32, the dtype's own error: kernels {rel(lk16, lk32):.3e} "
+        f"({agree(lk16, lk32):.3f}), plain {rel(lp16, lp32):.3e} "
+        f"({agree(lp16, lp32):.3f})")
+    if r32 > 2e-2:
+        fail(f"f32 logits with the kernels differ from the plain paths by "
+             f"{r32:.3e} of max|logit|")
+    return launches
+
+
+def engine_phase(torch, params, cfg, device="cuda", seed=11, n_req=4,
+                 max_new=8):
+    """The port's ServingEngine on zamba2-7b at full depth in f32: each
+    request's tokens against a full-forward greedy decode on the card."""
+    import numpy as np
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    cfg = cfg.replace(dtype="float32", use_pallas=True)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(8, 25))).astype(np.int32)
+               for _ in range(n_req)]
+    eng = ServingEngine(cfg, params, ServeConfig(slots=2, max_len=64),
+                        device=device)
+    for p in prompts:
+        eng.submit(p, max_new=max_new)
+    reqs = list(eng.queue)
+    t0 = time.perf_counter()
+    ticks = 0
+    while eng.queue or eng.active:
+        eng.step()
+        ticks += 1
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        for p, r in zip(prompts, reqs):
+            toks, ref = [int(t) for t in p], []
+            for _ in range(max_new):
+                logits, _, _ = M.forward(cfg, params, {"tokens": torch.tensor(
+                    [toks], dtype=torch.int32, device=device)}, mode="train")
+                ref.append(int(torch.argmax(logits[0, -1])))
+                toks.append(ref[-1])
+            if r.out_tokens != ref:
+                fail(f"engine request {r.req_id} gave {r.out_tokens}, "
+                     f"full-forward greedy {ref}")
+    units = {b: {"p": u["p"], "d": u["d"]}
+             for b, u in eng.published_units().items()}
+    log(f"[engine] zamba2-7b f32: {n_req} requests (prompts "
+        f"{[len(p) for p in prompts]}), {ticks} ticks in {wall:.2f}s; every "
+        f"request equals its full-forward greedy decode; published "
+        f"{json.dumps(units)}")
+
+
+def serve_full_phases(torch, cfg=None, device="cuda", B=4, S=2048,
+                      seed=7, **kw):
+    """Draw zamba2-7b's f32 master weights once on the card, then the
+    full-model and the engine phases on them."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params
+    cfg = cfg or get_config("zamba2-7b")
+    t0 = time.perf_counter()
+    params = init_params(seed, M.model_param_specs(cfg), device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=device, dtype=torch.int32)
+    sync(torch, device)
+    log(f"[full] {M.count_params(cfg)} f32 weights drawn in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    def prefill_logits(c):
+        caches = init_params(0, M.cache_specs_tree(c, B, S), device=device)
+        with torch.no_grad():
+            return M.prefill(c, params, {"tokens": prompts}, caches)[0]
+
+    # the reference's init rule as it is: measured, not held to a bound
+    c32 = cfg.replace(dtype="float32", use_pallas=True)
+    lk = prefill_logits(c32)
+    lp = prefill_logits(c32.replace(use_pallas=False))
+    log(f"[full] reference init rule, f32 prefill: kernels vs plain torch "
+        f"paths {float((lk - lp).abs().max() / lp.abs().max()):.3e} of "
+        f"max|logit|, greedy tokens agree "
+        f"{float((lk.argmax(-1) == lp.argmax(-1)).float().mean()):.3f}")
+    del lk, lp
+    condition_attention(cfg, params)
+    log("[full] shared attention scaled to a fan-in of d_model")
+    t0 = time.perf_counter()
+    launches = full_model_phase(torch, params, cfg, prompts, device=device,
+                                **kw)
+    log(f"[time] full-model phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    engine_phase(torch, params, cfg, device=device)
+    log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main():
     if os.environ.get("PYTHONHASHSEED") != "0":
         env = dict(os.environ, PYTHONHASHSEED="0")
@@ -306,11 +893,28 @@ def main():
         fail(f"kernels never launched on the main path: {missing}")
     log(f"[e2e] launches over the main path: {json.dumps(launches)}")
 
+    # ---- serve slice ----------------------------------------------------- #
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    records.update(model_kernel_phase(torch))
+    log(f"[time] serve-slice kernel phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    serve_reference_phase(torch)
+    torch.cuda.empty_cache()
+    log(f"[time] reference phase {time.perf_counter() - t0:.1f}s")
+    serve_launches = serve_full_phases(torch)
+    missing = [k for k, v in serve_launches.items() if v <= 0]
+    if missing:
+        fail(f"kernels never launched on the serve path: {missing}")
+    launches.update(serve_launches)
+
     kernels = []
-    for name in ("rarest_keys", "island_has", "match_requests"):
-        rec = records[name][0]
+    for name in ("rarest_keys", "island_has", "match_requests", "flash_fwd",
+                 "ssd_scan"):
+        rec = [r for r in records[name] if "ms" in r][0]
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in records[name]),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

@@ -163,9 +163,9 @@ class SwarmState:
                "island_d": "island"}
 
     def __init__(self, app_id: str, manifest, capacity: int = 64,
-                 dup_slots: int = 4, device="cpu"):
+                 dup_slots: int = 4, device="cuda"):
         self.app_id = app_id
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.manifest = manifest
         self.P = int(manifest.n_pieces)
         cap = max(int(capacity), 4)

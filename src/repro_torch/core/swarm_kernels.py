@@ -30,6 +30,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels.common import check as _check
+from repro_torch.kernels.common import lib as _lib
+from repro_torch.kernels.common import on_card  # noqa: F401
+from repro_torch.kernels.common import require as _require
+from repro_torch.kernels.common import stream as _stream
+
 # sentinel key for pieces a row must not request: above any real key
 KEY_INF = np.int64(2 ** 62)
 # sentinel for the int32 holder keys of the matcher / endgame shortlist
@@ -44,49 +50,6 @@ LAUNCHES: Dict[str, int] = {"rarest_keys": 0, "island_has": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def on_card(*tensors: torch.Tensor) -> bool:
-    """True when the tensors lie on a CUDA device, False on the CPU.
-    Mixed devices and any other device type raise."""
-    kinds = {t.device.type for t in tensors if t is not None}
-    if len(kinds) > 1:
-        raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
-    kind = kinds.pop() if kinds else "cpu"
-    if kind == "cuda":
-        return True
-    if kind == "cpu":
-        return False
-    raise ValueError(f"unsupported device type {kind!r}: "
-                     "repro_torch runs on 'cuda' or 'cpu'")
-
-
-def _lib():
-    from repro_torch import kernels_build
-    return kernels_build.load()
-
-
-def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
-             shape: Sequence[int]) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: the kernel takes CUDA tensors, "
-                         f"got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,90 @@
+"""The Mamba2 SSD chunked scan: CUDA kernel for Hopper and its plain
+PyTorch version.
+
+Counterpart of `repro.kernels.ssd.kernel` (`ssd_pallas` / `_ssd_kernel`).
+Within a chunk of L steps, with cum the inclusive cumsum of dt*A:
+
+   y      = ((C B^T) .* tril exp(cum_i - cum_j)) (dt x)      intra-chunk
+          + (C state_in^T) .* exp(cum)                        inter-chunk
+   state  = state_in * exp(cum_L) + (dt x .* exp(cum_L - cum))^T B
+
+all in f32, the chunks walked in order.  `ssd_scan` launches the kernel
+(`csrc/ssd_scan.cu`, one block per (batch, head)) for CUDA tensors and
+takes `ssd_scan_plain` for CPU tensors; it adds one to
+``LAUNCHES["ssd_scan"]`` where it launches, and nowhere else.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, check, lib,
+                                        on_card, require, stream)
+from repro_torch.models.ssm import ssd_scan as chunked_scan
+
+LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
+# what one block of the kernel holds in shared memory (csrc/ssd_scan.cu)
+MAX_HEAD_DIM = 128
+MAX_STATE = 128
+MAX_CHUNK = 1024
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 128
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in torch ops: the chunked scan of
+    `models.ssm` on f32 operands (f32 throughout, the chunks' states
+    carried in order).  Returns (y (B,S,H,P) in x's dtype, final_state
+    (B,H,P,N) f32)."""
+    y, fin = chunked_scan(x.float(), dt.float(), A.float(), Bm.float(),
+                          Cm.float(), chunk)
+    return y.to(x.dtype), fin
+
+
+def _launch_ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    Bsz, S, H, Pd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    require(x, "x", FLOAT_TYPES, (Bsz, S, H, Pd))
+    require(dt, "dt", torch.float32, (Bsz, S, H))
+    require(A, "A", torch.float32, (H,))
+    require(Bm, "Bm", x.dtype, (Bsz, S, G, N))
+    require(Cm, "Cm", x.dtype, (Bsz, S, G, N))
+    L = min(int(chunk), S)
+    if G < 1 or H % G:
+        raise ValueError(f"groups G={G} must divide heads H={H}")
+    if Pd > MAX_HEAD_DIM or N > MAX_STATE or L > MAX_CHUNK:
+        raise ValueError(f"ssd_scan kernel takes P <= {MAX_HEAD_DIM}, "
+                         f"N <= {MAX_STATE}, chunk <= {MAX_CHUNK}; got "
+                         f"P={Pd} N={N} chunk={L}")
+    y = torch.empty_like(x)
+    fin = torch.empty((Bsz, H, Pd, N), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        fin.zero_()
+        return y, fin
+    rc = lib().ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), fin.data_ptr(), Bsz, S, H, Pd, G, N, L,
+        DTYPE_CODE[x.dtype], stream(x.device))
+    check(rc, "ssd_scan")
+    LAUNCHES["ssd_scan"] += 1
+    return y, fin
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 128
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,H,P); dt: (B,S,H) f32; A: (H,) f32; Bm/Cm: (B,S,G,N) in x's
+    dtype with G | H.  Returns (y (B,S,H,P), final_state (B,H,P,N) f32).
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    `ssd_scan_plain`."""
+    if on_card(x, dt, A, Bm, Cm):
+        return _launch_ssd_scan(x, dt, A, Bm, Cm, chunk)
+    return ssd_scan_plain(x, dt, A, Bm, Cm, chunk)

@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-`csrc/swarm_kernels.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into a
-shared library with a plain C interface under ``build/repro_torch/`` at
-the repository root, at first use, and loaded with ctypes.  The library's
-file name carries a hash of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded.  A failed build raises:
-nothing falls back to the plain PyTorch versions.
+The sources under `csrc/` (`swarm_kernels.cu`, `flash_fwd.cu`,
+`ssd_scan.cu`) are compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc`
+per source all started together, and linked into one shared library with
+a plain C interface under ``build/repro_torch/`` at the repository root,
+at first use, and loaded with ctypes.  The library's file name carries a
+hash of the sources and the flags, so an edited source is rebuilt and a
+stale library is never loaded.  A failed build raises: nothing falls back
+to the plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -20,10 +22,11 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "swarm_kernels.cu",)
+SOURCES = tuple(_PKG / "csrc" / name for name in
+                ("swarm_kernels.cu", "flash_fwd.cu", "ssd_scan.cu"))
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -37,6 +40,10 @@ _SIGNATURES = {
     "island_has_launch": (_P, _P, _I, _I, _I, _P, _P),
     "match_requests_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _P, _I, _I, _P, _P),
+    "flash_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P),
+    "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
 }
 
 
@@ -67,21 +74,36 @@ def build(nvcc: Optional[str] = None,
             "from csrc/ with nvcc for sm_90a")
     out_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"libswarm_kernels_{_digest()}.so"
+    lib = out_dir / f"librepro_torch_kernels_{_digest()}.so"
     if lib.exists():
         BUILD_INFO.update(seconds=0.0, path=str(lib), log="cached")
         return lib
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"{_digest()}.{os.getpid()}"
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    BUILD_INFO.update(seconds=seconds, path=str(lib),
-                      log=(proc.stdout + proc.stderr).strip())
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for src, p, out in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({p.returncode}):\n{out}")
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(lib),
+                      log="\n".join(out.strip() for out in logs))
     return lib
 
 

@@ -1,0 +1,201 @@
+"""Continuous-batching serving engine with (d, p, w)-aware admission.
+
+Counterpart of `repro.serving.engine`.  Requests are the serving analogue
+of the paper's applications: each carries
+  d — prompt+generation bytes,
+  w — measured decode seconds (running average per bucket),
+  p — how many requests of this bucket were served.
+The engine publishes these units (like the tracker's list) and admission
+prefers short-w buckets when the queue saturates — the volunteer's
+"judge by d and w" heuristic as a scheduler policy.
+
+Execution: prompts are fed token by token through the decode step of the
+whole slot batch; finished slots are refilled from the queue (continuous
+batching).  The KV cache is one fixed-size pool tensor per layer, slots
+are rows.  Cold start from the swarm (`from_swarm`) comes with the
+checkpoint slice.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.swarm_arrays import resolve_device
+from repro_torch.models import model as M
+from repro_torch.parallel.sharding import init_params, tree_leaves_with_path
+from repro_torch.training.train_state import make_decode_step
+
+
+@dataclass
+class Request:
+    req_id: int
+    prompt: np.ndarray                 # (S,) int32
+    max_new: int = 16
+    arrived: float = 0.0
+    out_tokens: List[int] = field(default_factory=list)
+    done: bool = False
+    started: float = 0.0
+    finished: float = 0.0
+
+
+@dataclass
+class ServeConfig:
+    slots: int = 4                     # concurrent sequences
+    max_len: int = 256                 # cache length
+    prefill_bucket: int = 64
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
+                 device="cuda"):
+        """``params`` must lie on ``device`` ("cuda" by default, "cpu"
+        for the plain PyTorch paths)."""
+        self.cfg = cfg
+        self.sc = sc
+        self.device = resolve_device(device)
+        self.params = params
+        self.queue: collections.deque = collections.deque()
+        self.active: Dict[int, Request] = {}
+        self.slot_req: List[Optional[int]] = [None] * sc.slots
+        self.metrics = {"p": collections.Counter(),
+                        "w": collections.defaultdict(float),
+                        "d": collections.defaultdict(float)}
+        self._init_cache()
+        self._decode = make_decode_step(cfg)
+        self._next_id = 0
+
+    def _init_cache(self):
+        tree = M.cache_specs_tree(self.cfg, self.sc.slots, self.sc.max_len)
+        self.caches = init_params(0, tree, device=self.device)
+        self.positions = np.zeros(self.sc.slots, np.int64)
+        self.tokens = np.zeros((self.sc.slots, 1), np.int32)
+
+    def submit(self, prompt: np.ndarray, max_new: int = 16) -> int:
+        rid = self._next_id
+        self._next_id += 1
+        req = Request(rid, np.asarray(prompt, np.int32), max_new,
+                      arrived=time.monotonic())
+        self.queue.append(req)
+        return rid
+
+    def _bucket(self, req: Request) -> int:
+        b = self.sc.prefill_bucket
+        return ((len(req.prompt) + b - 1) // b) * b
+
+    def _admit(self) -> None:
+        """Fill free slots; prefer short-w buckets under saturation."""
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        if not free or not self.queue:
+            return
+        pending = sorted(
+            self.queue,
+            key=lambda r: self.metrics["w"].get(self._bucket(r), 0.0))
+        for slot in free:
+            if not pending:
+                break
+            req = pending.pop(0)
+            self.queue.remove(req)
+            self._prefill_into_slot(slot, req)
+
+    def _prefill_into_slot(self, slot: int, req: Request) -> None:
+        """Sequential prefill through the decode step (slot-local)."""
+        req.started = time.monotonic()
+        self.active[req.req_id] = req
+        self.slot_req[slot] = req.req_id
+        # reset this slot's position; feed prompt tokens one step at a time
+        # through the shared decode path (slot-granular continuous batching;
+        # a bucketed prefill graph is the natural next optimisation).
+        self.positions[slot] = 0
+        self._reset_slot(slot)
+        toks = req.prompt
+        for t in toks[:-1]:
+            self.tokens[slot, 0] = int(t)
+            self._step_decode(only_slot=slot)
+        self.tokens[slot, 0] = int(toks[-1])
+
+    def _reset_slot(self, slot: int) -> None:
+        """Zero a slot's rows of every cache.  The SSM and conv states are
+        recurrent: a new request must not start from the last one's."""
+        for _, leaf in tree_leaves_with_path(self.caches["decoder"]):
+            leaf[:, slot].zero_()
+
+    def _step_decode(self, only_slot: Optional[int] = None) -> np.ndarray:
+        """One decode step of every slot, or with ``only_slot`` of that
+        slot alone (a prefill microstep) on views of its cache rows, which
+        the step updates in place: the other slots' recurrent states must
+        not advance."""
+        rows = (slice(None) if only_slot is None
+                else slice(only_slot, only_slot + 1))
+        pos = self.positions[rows]
+        dev = self.device
+        batch = {"tokens": torch.as_tensor(self.tokens[rows], device=dev)}
+        if self.cfg.mrope:
+            p3 = np.broadcast_to(pos[None, :, None],
+                                 (3, len(pos), 1)).astype(np.int32)
+            batch["positions"] = torch.as_tensor(p3, device=dev)
+        caches = {"decoder": _rows(self.caches["decoder"], rows),
+                  # per-slot positions: each sequence writes/masks at its
+                  # own index
+                  "index": torch.as_tensor(pos.astype(np.int32), device=dev)}
+        next_tok, _ = self._decode(self.params, batch, caches)
+        self.positions[rows] += 1
+        return next_tok.cpu().numpy()
+
+    def step(self) -> int:
+        """One engine tick: admit, decode the full batch, retire finished."""
+        self._admit()
+        if not self.active:
+            return 0
+        t0 = time.monotonic()
+        nxt = self._step_decode()
+        dt = time.monotonic() - t0
+        produced = 0
+        for slot, rid in enumerate(self.slot_req):
+            if rid is None:
+                continue
+            req = self.active[rid]
+            tok = int(nxt[slot])
+            req.out_tokens.append(tok)
+            self.tokens[slot, 0] = tok
+            produced += 1
+            if len(req.out_tokens) >= req.max_new:
+                req.done = True
+                req.finished = time.monotonic()
+                b = self._bucket(req)
+                self.metrics["p"][b] += 1
+                self.metrics["w"][b] = (
+                    0.8 * self.metrics["w"].get(b, dt) + 0.2 *
+                    (req.finished - req.started))
+                self.metrics["d"][b] += 4.0 * (len(req.prompt)
+                                               + len(req.out_tokens))
+                self.slot_req[slot] = None
+                del self.active[rid]
+        return produced
+
+    def run_until_drained(self, max_ticks: int = 10_000) -> List[Request]:
+        done: List[Request] = []
+        seen = set()
+        for _ in range(max_ticks):
+            if not self.queue and not self.active:
+                break
+            self.step()
+        return done
+
+    def published_units(self) -> dict:
+        """The tracker-style (d, p, w) listing per prompt bucket."""
+        return {b: {"d": self.metrics["d"][b], "p": self.metrics["p"][b],
+                    "w": self.metrics["w"][b]}
+                for b in self.metrics["p"]}
+
+
+def _rows(tree, rows: slice):
+    """Views of the batch rows of a stacked cache tree (batch is dim 1)."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, rows) for k, v in tree.items()}
+    return tree[:, rows]

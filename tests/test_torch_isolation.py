@@ -83,6 +83,23 @@ def test_unknown_devices_raise(device):
         SwarmHub(device=device)
 
 
+@pytest.mark.parametrize("device", ["tpu", "meta"])
+def test_swarm_state_checks_its_device(device):
+    """`SwarmState` is public: it defaults to the card, raises without one,
+    and refuses devices other than cuda and cpu."""
+    from types import SimpleNamespace
+    from repro_torch.core.swarm_arrays import SwarmState
+    manifest = SimpleNamespace(n_pieces=4)
+    with pytest.raises((ValueError, RuntimeError)):
+        SwarmState("app", manifest, device=device)
+    if torch.cuda.is_available():
+        assert SwarmState("app", manifest).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            SwarmState("app", manifest)
+    assert SwarmState("app", manifest, device="cpu").device.type == "cpu"
+
+
 def test_wrappers_refuse_other_devices():
     from repro_torch.core import swarm_kernels as sk
     counts = torch.zeros(4, dtype=torch.int64, device="meta")

@@ -145,3 +145,148 @@ def test_small_flash_crowd_on_cuda_matches_cpu(sk):
     for arm in ("naive", "p4p"):
         assert {k: a[arm][k] for k in keys + ("cross_isp_bytes",)} == \
             {k: b[arm][k] for k in keys + ("cross_isp_bytes",)}
+
+
+# ================= the model stack's kernels: flash and SSD ============== #
+_F16 = (torch.float32, torch.bfloat16, torch.float16)
+
+
+@pytest.fixture
+def mk():
+    """The flash and SSD kernel modules, with TF32 off for f32 references."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import kernels_build
+    if kernels_build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build the kernels")
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as ssk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return fk, ssk
+
+
+def _tol(dtype, f32):
+    return f32 if dtype == torch.float32 else 2e-2
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_flash_fwd_kernel_matches_plain(mk, seed):
+    """Random shapes: head_dim 112 and other non-powers of two, ragged
+    lengths, GQA groups, causal / window / non-causal Sq != Skv."""
+    fk, _ = mk
+    rs = np.random.default_rng(200 + seed)
+    for it in range(8):
+        B = int(rs.integers(1, 4))
+        Hkv = int(rs.choice([1, 2, 4]))
+        Hq = Hkv * int(rs.choice([1, 2, 4]))
+        D = int(rs.choice([8, 16, 24, 64, 112, 128, 240]))
+        causal = bool(rs.random() < 0.7)
+        Sq = int(rs.integers(1, 300))
+        Skv = Sq if causal else int(rs.integers(1, 300))
+        window = int(rs.choice([0, 0, 17, 100]))
+        dtype = _F16[it % 3]
+        q, k, v = (G(rs.standard_normal(s).astype(np.float32)).to(dtype)
+                   for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
+                             (B, Skv, Hkv, D)))
+        n0 = fk.LAUNCHES["flash_fwd"]
+        out, lse = fk.flash_fwd(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert fk.LAUNCHES["flash_fwd"] == n0 + 1
+        want, wlse = fk.flash_fwd_plain(q, k, v, causal=causal,
+                                        window=window)
+        case = (B, Sq, Skv, Hq, Hkv, D, causal, window, dtype)
+        assert out.dtype == dtype and lse.dtype == torch.float32
+        # rows with no key under the mask (a window past a short Skv) have
+        # no attention to compare: both give finite, block-size dependent
+        # numbers, as the reference's kernel does
+        live = wlse > -1e29
+        assert torch.equal(live, lse > -1e29), case
+        assert bool(torch.isfinite(out).all()), case
+        if bool(live.any()):
+            assert float((out.float() - want.float())[live].abs().max()) < \
+                _tol(dtype, 2e-5), case
+            assert float((lse - wlse)[live].abs().max()) < \
+                _tol(dtype, 1e-4), case
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_ssd_scan_kernel_matches_plain(mk, seed):
+    """Random shapes: ragged S, G > 1, chunks below and above 64 rows,
+    P and N up to 128, f32 / bf16 / f16 inputs."""
+    _, ssk = mk
+    rs = np.random.default_rng(300 + seed)
+    for it in range(6):
+        B = int(rs.integers(1, 4))
+        G_ = int(rs.choice([1, 2]))
+        H = G_ * int(rs.choice([1, 2, 4]))
+        P = int(rs.choice([8, 16, 32, 64, 128]))
+        N = int(rs.choice([8, 16, 64, 128]))
+        S = int(rs.integers(1, 400))
+        chunk = int(rs.choice([16, 50, 64, 128, 256]))
+        dtype = _F16[it % 3]
+        x = G(rs.standard_normal((B, S, H, P)).astype(np.float32)).to(dtype)
+        dt = G(np.logaddexp(rs.standard_normal((B, S, H)), 0)
+               .astype(np.float32) * 0.5)
+        A = G((-np.exp(rs.standard_normal(H) * 0.3)).astype(np.float32))
+        Bm = G((rs.standard_normal((B, S, G_, N)) * 0.5)
+               .astype(np.float32)).to(dtype)
+        Cm = G((rs.standard_normal((B, S, G_, N)) * 0.5)
+               .astype(np.float32)).to(dtype)
+        n0 = ssk.LAUNCHES["ssd_scan"]
+        y, fin = ssk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssk.LAUNCHES["ssd_scan"] == n0 + 1
+        wy, wfin = ssk.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+        case = (B, S, H, P, G_, N, chunk, dtype)
+        assert y.dtype == dtype and fin.dtype == torch.float32
+        tol = 1e-3 if dtype == torch.float32 else 1e-2
+        assert float((y.float() - wy.float()).abs().max()) <= \
+            tol * max(1.0, float(wy.float().abs().max())), case
+        assert float((fin - wfin).abs().max()) <= \
+            tol * max(1.0, float(wfin.abs().max())), case
+
+
+def test_reduced_hybrid_model_on_cuda_matches_cpu(mk):
+    """zamba2 (reduced, f32) through both kernels on the card against the
+    plain versions on the CPU: prefill and decode logits and caches."""
+    fk, ssk = mk
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.parallel.sharding import (init_params,
+                                               init_params_numpy,
+                                               tree_leaves_with_path)
+    cfg = reduced_config(get_config("zamba2-7b")).replace(
+        dtype="float32", use_pallas=True, attn_impl="flash")
+    specs = M.model_param_specs(cfg)
+    tree = init_params_numpy(0, specs)
+    n_ssd = sum(g.repeat * len(g.layers) for g in cfg.groups)
+    n_attn = sum(g.repeat * sum(ls.shared_attn for ls in g.layers)
+                 for g in cfg.groups)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = params_from_reference(tree, specs, device=dev)
+        caches = init_params(0, M.cache_specs_tree(cfg, 2, 48), device=dev)
+        n0 = (fk.LAUNCHES["flash_fwd"], ssk.LAUNCHES["ssd_scan"])
+        with torch.no_grad():
+            last, caches = M.prefill(
+                cfg, params, {"tokens": toks[:, :36].to(dev)}, caches)
+            logits = [last.cpu()]
+            for i in range(36, 40):
+                lg, caches = M.decode_step(
+                    cfg, params, {"tokens": toks[:, i:i + 1].to(dev)},
+                    caches)
+                logits.append(lg.cpu())
+        launched = (fk.LAUNCHES["flash_fwd"] - n0[0],
+                    ssk.LAUNCHES["ssd_scan"] - n0[1])
+        assert launched == ((n_attn, n_ssd) if dev == "cuda" else (0, 0))
+        out[dev] = (torch.stack(logits), {k: v.cpu() for k, v in
+                                          tree_leaves_with_path(caches)})
+    (lc, cc), (lg, cg) = out["cpu"], out["cuda"]
+    assert float((lc - lg).abs().max()) <= 1e-4 * float(lc.abs().max())
+    for name, t in cc.items():
+        assert float((t.float() - cg[name].float()).abs().max()) <= \
+            1e-4 * max(1.0, float(t.float().abs().max())), name

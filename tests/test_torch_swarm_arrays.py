@@ -188,7 +188,7 @@ def test_planes_follow_crash_and_topology_changes():
 # =========== single-pass SwarmState growth, host and device ============= #
 def test_swarm_state_growth_single_pass_covers_rows_and_planes():
     m = PieceManifest.synthetic("g", 8_000, 1_000)     # P=8 != cap=4
-    st = SwarmState("g", m, capacity=4)
+    st = SwarmState("g", m, capacity=4, device="cpu")
     cap = st.have.shape[0]
     assert cap == 4 and st.P == 8
     per_row = {name for name, a in vars(st).items()
