@@ -15,13 +15,17 @@
    under PYTHONHASHSEED=0);
 3. serve slice: holds `flash_fwd` and `ssd_scan` against their plain
    versions (the reference's kernel-test cases and the serve path's
-   shapes) and times them beside `scaled_dot_product_attention`; runs
+   shapes: f32 on the CUDA-core kernels, bf16 on the tensor-core ones),
+   times each at the serve shape against its CUDA-core kernel in turns
+   (v1, v2, v2, v1) and flash beside `scaled_dot_product_attention`; runs
    zamba2-7b at full width cut to 7 layers in f32 against
    `src/repro_torch/reference_serve.json` (the reference package's
    prefill and decode logits); drives zamba2-7b at full depth and width in
    bf16 (B=4, S=2048 prefill, 32 decode steps) through `make_prefill_step`
    / `make_decode_step`, checks that each prefill launched `ssd_scan` 81
-   and `flash_fwd` 13 times, and holds its logits to the plain torch
+   and `flash_fwd` 13 times, all on the tensor-core route (by the
+   wrappers' counts and by the kernel names in a profiler trace), and
+   holds its logits to the plain torch
    paths; serves 4 requests through `ServingEngine` on the f32 model and
    holds each to a full-forward greedy decode;
 4. prints the per-kernel JSON line, the card's name and power limit, and
@@ -54,9 +58,14 @@ SOURCES = {
     "rarest_keys": "src/repro_torch/csrc/swarm_kernels.cu",
     "island_has": "src/repro_torch/csrc/swarm_kernels.cu",
     "match_requests": "src/repro_torch/csrc/swarm_kernels.cu",
-    "flash_fwd": "src/repro_torch/csrc/flash_fwd.cu",
-    "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+    "flash_fwd": "src/repro_torch/csrc/flash_fwd_mma.cu",
+    "ssd_scan": "src/repro_torch/csrc/ssd_scan_mma.cu",
 }
+# the route each kernel of the line ran on its main path: bf16 serving
+# takes the tensor-core kernels
+ROUTES = {"rarest_keys": "cuda", "island_has": "cuda",
+          "match_requests": "cuda", "flash_fwd": "cuda-mma",
+          "ssd_scan": "cuda-mma"}
 REPLACES = {
     "rarest_keys": "src/repro/core/swarm_kernels.py:112",
     "island_has": "src/repro/core/swarm_kernels.py:221",
@@ -358,8 +367,12 @@ def model_kernel_phase(torch):
         log(f"[kernel] {name} {case}: {what} max abs err {err:.3e} "
             f"(tolerance {tol:.0e}{' of max ' + f'{scale:.3f}' if relative else ''})")
 
-    def timed(name, kernel, plain, n_bytes, n_ops, peak, library=None):
-        ms = device_ms(kernel, reps=10, inner=3)
+    def timed(name, kernel, v1, plain, n_bytes, n_ops, peak, library=None):
+        """Device ms of the kernel and of its CUDA-core version v1, in
+        turns (v1, v2, v2, v1), each the mean of its two turns."""
+        turns = [device_ms(f, reps=10, inner=3)
+                 for f in (v1, kernel, kernel, v1)]
+        ms, v1_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         ms_call = call_ms(kernel, reps=10)
         plain_ms = call_ms(plain, reps=5)
         lib_ms = device_ms(library, reps=10, inner=3) if library else None
@@ -368,11 +381,13 @@ def model_kernel_phase(torch):
         b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                       else (t_ops, "operations"))
         rec = records[name][-1]
-        rec.update(ms=ms, call_ms=ms_call, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms, bytes=n_bytes,
-                   ops=n_ops)
-        log(f"[kernel] {name} {rec['case']}: ms={ms:.4f} (one call as "
-            f"issued {ms_call:.4f}) plain_ms={plain_ms:.3f} bytes={n_bytes} "
+        rec.update(ms=ms, v1_ms=v1_ms, call_ms=ms_call, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   bytes=n_bytes, ops=n_ops)
+        log(f"[kernel] {name} {rec['case']}: ms={ms:.4f} (turns v1 v2 v2 v1 "
+            f"{' '.join(f'{x:.4f}' for x in turns)}; one call as issued "
+            f"{ms_call:.4f}) v1_ms={v1_ms:.4f} plain_ms={plain_ms:.3f} "
+            f"bytes={n_bytes} "
             f"ops={n_ops} bound_ms={b_ms:.4f} ({b_by})"
             + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""))
 
@@ -398,6 +413,7 @@ def model_kernel_phase(torch):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     timed("flash_fwd",
           lambda: fk.flash_fwd(q, k, v, causal=True),
+          lambda: fk.flash_fwd_v1(q, k, v, causal=True),
           lambda: fk.flash_fwd_plain(q, k, v, causal=True),
           4 * q.numel() * q.element_size() + lse.numel() * 4,
           4 * B * H * D * live_pairs(S, S, True, 0), BF16_OPS_PER_S,
@@ -429,6 +445,7 @@ def model_kernel_phase(torch):
     check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
     timed("ssd_scan",
           lambda: ssk.ssd_scan(*args, chunk=chunk),
+          lambda: ssk.ssd_scan_v1(*args, chunk=chunk),
           lambda: ssk.ssd_scan_plain(*args, chunk=chunk),
           sum(t.numel() * t.element_size() for t in (*args, y, fin)),
           ssd_ops(B, S, H, P, N, chunk), BF16_OPS_PER_S)
@@ -447,6 +464,11 @@ def reset_model_launches():
     from repro_torch.kernels.ssd import kernel as ssk
     fk.reset_launches()
     ssk.reset_launches()
+
+
+def route_counts(n_flash, n_ssd, n_flash_mma, n_ssd_mma):
+    return {"flash_fwd": n_flash, "flash_fwd.mma": n_flash_mma,
+            "ssd_scan": n_ssd, "ssd_scan.mma": n_ssd_mma}
 
 
 def layer_counts(cfg):
@@ -521,8 +543,9 @@ def serve_reference_phase(torch, device="cuda"):
                 caches)
     launched = model_launches()
     n_ssd, n_attn = layer_counts(cfg)
-    want = ({"flash_fwd": n_attn, "ssd_scan": n_ssd} if device == "cuda"
-            else {"flash_fwd": 0, "ssd_scan": 0})
+    # f32: every launch on the CUDA-core kernels
+    want = route_counts(n_attn, n_ssd, 0, 0) if device == "cuda" \
+        else route_counts(0, 0, 0, 0)
     if launched != want:
         fail(f"7-layer prefill launched {launched}, expected {want}")
     log(f"[serve-ref] matches reference_serve.json (worst {worst:.2e} of "
@@ -535,6 +558,11 @@ def serve_reference_phase(torch, device="cuda"):
 def sync(torch, device):
     if device == "cuda":
         torch.cuda.synchronize()
+
+
+# the kernels' names in a device trace, tensor-core and CUDA-core
+MODEL_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel",
+                 "ssd_scan_mma_kernel", "ssd_scan_kernel")
 
 
 def profile_step(torch, what, fn):
@@ -550,6 +578,7 @@ def profile_step(torch, what, fn):
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     sums = {"ssd_scan": 0.0, "flash_fwd": 0.0, "gemm": 0.0, "other": 0.0}
+    kernels = dict.fromkeys(MODEL_KERNELS, 0)
     names, n = {}, 0
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
@@ -559,9 +588,12 @@ def profile_step(torch, what, fn):
         low = name.lower()
         n += 1
         names[name] = names.get(name, 0.0) + ms
-        if "ssd_scan_kernel" in low:
+        for kname in MODEL_KERNELS:
+            if kname in low:
+                kernels[kname] += 1
+        if "ssd_scan_" in low:
             sums["ssd_scan"] += ms
-        elif "flash_fwd_kernel" in low:
+        elif "flash_fwd_" in low:
             sums["flash_fwd"] += ms
         elif any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet",
                                     "cublas")):
@@ -573,8 +605,10 @@ def profile_step(torch, what, fn):
     log(f"[profile] {what}: wall_ms={wall:.1f} (under the profiler) "
         f"kernels={n} device_ms={busy:.1f} "
         f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} idle share "
-        f"{max(0.0, 1 - busy / wall):.3f}; top "
+        f"{max(0.0, 1 - busy / wall):.3f}; model kernels launched "
+        f"{json.dumps(kernels)}; top "
         f"{json.dumps([(k[:60], round(v, 3)) for k, v in top])}")
+    return kernels
 
 
 def condition_attention(cfg, params):
@@ -692,8 +726,9 @@ def full_model_phase(torch, params, cfg, prompts, device="cuda",
     sync(torch, device)
     prefill_s = time.perf_counter() - t0
     per_prefill = model_launches()
-    want = ({"flash_fwd": n_attn, "ssd_scan": n_ssd} if on_card
-            else {"flash_fwd": 0, "ssd_scan": 0})
+    # bf16: every launch on the tensor-core kernels
+    want = route_counts(n_attn, n_ssd, n_attn, n_ssd) if on_card \
+        else route_counts(0, 0, 0, 0)
     if per_prefill != want:
         fail(f"the prefill launched {per_prefill}, expected {want}")
     toks = [tok]
@@ -712,8 +747,12 @@ def full_model_phase(torch, params, cfg, prompts, device="cuda",
         f"memory {peak_gb:.2f} GiB (with the f32 master weights); launches "
         f"{json.dumps(launches)}")
     if on_card:
-        profile_step(torch, "bf16 prefill", lambda: prefill_step(
+        traced = profile_step(torch, "bf16 prefill", lambda: prefill_step(
             params16, {"tokens": prompts}, fresh_caches(cfg16)))
+        want = {"flash_fwd_mma_kernel": n_attn, "flash_fwd_kernel": 0,
+                "ssd_scan_mma_kernel": n_ssd, "ssd_scan_kernel": 0}
+        if traced != want:
+            fail(f"the traced prefill ran {traced}, expected {want}")
         profile_step(torch, "bf16 decode step", lambda: decode_step(
             params16, {"tokens": toks[-1][:, None]}, caches))
     del caches
@@ -914,12 +953,13 @@ def main():
                  "ssd_scan"):
         rec = [r for r in records[name] if "ms" in r][0]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
+            "name": name, "route": "cuda", "kernel_route": ROUTES[name],
+            "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in records[name]),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"]})
+            "library_ms": rec["library_ms"], "v1_ms": rec.get("v1_ms")})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -1,6 +1,9 @@
-// Hopper (sm_90a) kernel for the FlashAttention-2 forward
-// (repro_torch/kernels/flash_attention/kernel.py).  Plain C entry point,
-// loaded with ctypes; it launches on the caller's stream, allocates
+// Hopper (sm_90a) kernel for the FlashAttention-2 forward on f32 inputs
+// (repro_torch/kernels/flash_attention/kernel.py), on the CUDA cores, and
+// the C entry points, loaded with ctypes: `flash_fwd_launch` sends f32 here
+// and bf16 / f16 to the tensor-core kernel (flash_fwd_mma.cu);
+// `flash_fwd_v1_launch` runs this kernel at any dtype, to time the two
+// against each other.  A launch runs on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() so a refused launch is reported
 // at the call site.
 //
@@ -29,7 +32,7 @@
 // to the input dtype (as the reference's brick scan casts it) into shared
 // memory; V then reuses K's buffer for P V.  Masked scores are -1e30, not
 // -inf, and l is clamped at 1e-37, so rows with nothing to attend give the
-// reference's finite numbers.  wgmma/TMA tiles are later work.
+// reference's finite numbers.
 
 #include <cmath>
 #include <cstdint>
@@ -268,13 +271,33 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 
 }  // namespace
 
+// the tensor-core route for bf16 and f16 (flash_fwd_mma.cu)
+int flash_fwd_mma(const void* q, const void* k, const void* v, void* out,
+                  void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                  int causal, int window, int dtype, cudaStream_t st);
+
 extern "C" {
 
-// dtype: 0 f32, 1 bf16, 2 f16 (q, k, v and out); lse is f32.
+// dtype: 0 f32, 1 bf16, 2 f16 (q, k, v and out); lse is f32.  f32 runs
+// the CUDA-core kernel above, bf16 and f16 the tensor-core kernel.
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                      void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
                      int D, int causal, int window, int dtype,
                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D, causal,
+                         window, st);
+  return flash_fwd_mma(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D, causal,
+                       window, dtype, st);
+}
+
+// The CUDA-core kernel above at any dtype: the yardstick that the
+// tensor-core route is timed against.  Nothing on the serve path calls it.
+int flash_fwd_v1_launch(const void* q, const void* k, const void* v,
+                        void* out, void* lse, int B, int Sq, int Skv, int Hq,
+                        int Hkv, int D, int causal, int window, int dtype,
+                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case 0:

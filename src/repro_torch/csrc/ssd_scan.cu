@@ -1,8 +1,10 @@
-// Hopper (sm_90a) kernel for the Mamba2 SSD chunked scan
-// (repro_torch/kernels/ssd/kernel.py).  Plain C entry point, loaded with
-// ctypes; it launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError() so a refused launch is reported at the call
-// site.
+// Hopper (sm_90a) kernel for the Mamba2 SSD chunked scan on f32 inputs
+// (repro_torch/kernels/ssd/kernel.py), on the CUDA cores, and the C entry
+// points, loaded with ctypes: `ssd_scan_launch` sends f32 here and bf16 /
+// f16 to the tensor-core kernel (ssd_scan_mma.cu); `ssd_scan_v1_launch`
+// runs this kernel at any dtype, to time the two against each other.  A
+// launch runs on the caller's stream, allocates nothing, and returns
+// cudaGetLastError() so a refused launch is reported at the call site.
 //
 // ssd_scan replaces src/repro/kernels/ssd/kernel.py ssd_pallas /
 // _ssd_kernel.  With cum the inclusive cumsum of dt*A over a chunk of L
@@ -32,7 +34,7 @@
 // contribution), so a ragged final chunk leaves the reference's state.
 //
 // Occupancy: one block per (batch, head) is 112 blocks at B=1 for 132 SMs
-// and 448 at B=4; a later PR can split P across blocks.
+// and 448 at B=4 (the tensor-core kernel splits P across blocks).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -318,13 +320,32 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
 
 }  // namespace
 
+// the tensor-core route for bf16 and f16 (ssd_scan_mma.cu)
+int ssd_scan_mma(const void* x, const void* dt, const void* A, const void* Bm,
+                 const void* Cm, void* y, void* fin, int B, int S, int H,
+                 int P, int G, int N, int L, int dtype, cudaStream_t st);
+
 extern "C" {
 
 // dtype: 0 f32, 1 bf16, 2 f16 (x, Bm, Cm and y); dt, A and fin are f32.
+// f32 runs the CUDA-core kernel above, bf16 and f16 the tensor-core kernel.
 int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, void* y, void* fin,
                     int B, int S, int H, int P, int G, int N, int L,
                     int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float>(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L, st);
+  return ssd_scan_mma(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L, dtype,
+                      st);
+}
+
+// The CUDA-core kernel above at any dtype: the yardstick that the
+// tensor-core route is timed against.  Nothing on the serve path calls it.
+int ssd_scan_v1_launch(const void* x, const void* dt, const void* A,
+                       const void* Bm, const void* Cm, void* y, void* fin,
+                       int B, int S, int H, int P, int G, int N, int L,
+                       int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case 0:

@@ -2,16 +2,21 @@
 version.
 
 Counterpart of `repro.kernels.flash_attention.kernel` (`flash_fwd_pallas` /
-`_fwd_kernel`).  `flash_fwd` launches the kernel (`csrc/flash_fwd.cu`: one
-block per (batch, q head, 64-row q tile), a loop over 64-row kv tiles with
-the online softmax, kv tiles wholly outside the causal/window mask
-skipped) for CUDA tensors, and takes `flash_fwd_plain` for CPU tensors.  It
-adds one to ``LAUNCHES["flash_fwd"]`` where it launches, and nowhere else.
+`_fwd_kernel`).  `flash_fwd` launches a kernel for CUDA tensors, and takes
+`flash_fwd_plain` for CPU tensors.  The kernel's route follows the dtype:
+f32 runs `csrc/flash_fwd.cu` (f32 FMAs on the CUDA cores), bf16 and f16
+`csrc/flash_fwd_mma.cu` (mma.sync on the tensor cores, K/V through a
+cp.async ring).  Both take one block per (batch, q head, 64-row q tile), a
+loop over 64-row kv tiles with the online softmax, kv tiles wholly outside
+the causal/window mask skipped.  It adds one to ``LAUNCHES["flash_fwd"]``
+where it launches, and one to ``LAUNCHES["flash_fwd.mma"]`` too when the
+launch took the tensor-core route; nowhere else.
 
-Arithmetic, in both: QK^T in f32 from f32 operands, masked entries at
-NEG_INF = -1e30 (not -inf), p cast to the input dtype before PV, the sum l
-clamped at 1e-37, so wholly masked rows give finite numbers as the
-reference's do.  GQA maps kv head = q head // (Hq / Hkv).
+Arithmetic, in all three: QK^T in f32 (from f32 operands, or as exact f32
+products of 16-bit ones), masked entries at NEG_INF = -1e30 (not -inf), p
+cast to the input dtype before PV, the sum l clamped at 1e-37, so wholly
+masked rows give finite numbers as the reference's do.  GQA maps kv head =
+q head // (Hq / Hkv).
 """
 from __future__ import annotations
 
@@ -19,11 +24,11 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, check, lib,
-                                        on_card, require, stream)
+from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, MMA_TYPES,
+                                        check, lib, on_card, require, stream)
 from repro_torch.kernels.flash_attention.ops import brick_fwd
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd.mma": 0}
 MAX_HEAD_DIM = 256          # what one block holds in shared memory
 PLAIN_BLOCK = 128           # the plain version's brick (the Pallas default)
 
@@ -42,7 +47,7 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool, window: int
+                      causal: bool, window: int, v1: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -60,13 +65,24 @@ def _launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     if Skv == 0:
         raise ValueError("flash_fwd needs at least one key")
-    rc = lib().flash_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
-        int(window), DTYPE_CODE[q.dtype], stream(q.device))
+    entry = lib().flash_fwd_v1_launch if v1 else lib().flash_fwd_launch
+    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               lse.data_ptr(), B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
+               int(window), DTYPE_CODE[q.dtype], stream(q.device))
     check(rc, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
+    if not v1 and q.dtype in MMA_TYPES:
+        LAUNCHES["flash_fwd.mma"] += 1
     return out, lse
+
+
+def flash_fwd_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True, window: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA-core kernel (`csrc/flash_fwd.cu`) at any dtype, CUDA
+    tensors only: the yardstick that the tensor-core route is timed
+    against.  No model path calls it."""
+    return _launch_flash_fwd(q, k, v, causal, window, v1=True)
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

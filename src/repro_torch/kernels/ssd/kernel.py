@@ -8,10 +8,16 @@ Within a chunk of L steps, with cum the inclusive cumsum of dt*A:
           + (C state_in^T) .* exp(cum)                        inter-chunk
    state  = state_in * exp(cum_L) + (dt x .* exp(cum_L - cum))^T B
 
-all in f32, the chunks walked in order.  `ssd_scan` launches the kernel
-(`csrc/ssd_scan.cu`, one block per (batch, head)) for CUDA tensors and
-takes `ssd_scan_plain` for CPU tensors; it adds one to
-``LAUNCHES["ssd_scan"]`` where it launches, and nowhere else.
+all in f32, the chunks walked in order.  `ssd_scan` launches a kernel for
+CUDA tensors and takes `ssd_scan_plain` for CPU tensors.  The kernel's
+route follows the dtype: f32 runs `csrc/ssd_scan.cu` (one block per
+(batch, head), f32 FMAs on the CUDA cores), bf16 and f16
+`csrc/ssd_scan_mma.cu` (one block per (batch, head, slice of up to 64 of P),
+mma.sync on the tensor cores; M is rounded to the input dtype, the state
+and the decay-scaled x of its update to tf32).  It adds one to
+``LAUNCHES["ssd_scan"]`` where it launches, and one to
+``LAUNCHES["ssd_scan.mma"]`` too when the launch took the tensor-core
+route; nowhere else.
 """
 from __future__ import annotations
 
@@ -19,12 +25,13 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, check, lib,
-                                        on_card, require, stream)
+from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, MMA_TYPES,
+                                        check, lib, on_card, require, stream)
 from repro_torch.models.ssm import ssd_scan as chunked_scan
 
-LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
-# what one block of the kernel holds in shared memory (csrc/ssd_scan.cu)
+LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan.mma": 0}
+# what one block of the kernels holds in shared memory (csrc/ssd_scan.cu,
+# csrc/ssd_scan_mma.cu)
 MAX_HEAD_DIM = 128
 MAX_STATE = 128
 MAX_CHUNK = 1024
@@ -48,7 +55,8 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _launch_ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                     Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                     Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                     v1: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     Bsz, S, H, Pd = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -69,13 +77,24 @@ def _launch_ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if y.numel() == 0:
         fin.zero_()
         return y, fin
-    rc = lib().ssd_scan_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), fin.data_ptr(), Bsz, S, H, Pd, G, N, L,
-        DTYPE_CODE[x.dtype], stream(x.device))
+    entry = lib().ssd_scan_v1_launch if v1 else lib().ssd_scan_launch
+    rc = entry(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+               Cm.data_ptr(), y.data_ptr(), fin.data_ptr(), Bsz, S, H, Pd, G,
+               N, L, DTYPE_CODE[x.dtype], stream(x.device))
     check(rc, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
+    if not v1 and x.dtype in MMA_TYPES:
+        LAUNCHES["ssd_scan.mma"] += 1
     return y, fin
+
+
+def ssd_scan_v1(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 128
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA-core kernel (`csrc/ssd_scan.cu`) at any dtype, CUDA tensors
+    only: the yardstick that the tensor-core route is timed against.  No
+    model path calls it."""
+    return _launch_ssd_scan(x, dt, A, Bm, Cm, chunk, v1=True)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -1,7 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under `csrc/` (`swarm_kernels.cu`, `flash_fwd.cu`,
-`ssd_scan.cu`) are compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc`
+The sources under `csrc/` (`swarm_kernels.cu`; `flash_fwd.cu` and
+`ssd_scan.cu`, the f32 kernels and the C entry points; `flash_fwd_mma.cu`
+and `ssd_scan_mma.cu`, the tensor-core kernels for bf16 and f16, with
+`mma_sm90.cuh`) are compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc`
 per source all started together, and linked into one shared library with
 a plain C interface under ``build/repro_torch/`` at the repository root,
 at first use, and loaded with ctypes.  The library's file name carries a
@@ -23,7 +25,9 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
-                ("swarm_kernels.cu", "flash_fwd.cu", "ssd_scan.cu"))
+                ("swarm_kernels.cu", "flash_fwd.cu", "ssd_scan.cu",
+                 "flash_fwd_mma.cu", "ssd_scan_mma.cu"))
+HEADERS = (_PKG / "csrc" / "mma_sm90.cuh",)
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +49,8 @@ _SIGNATURES = {
     "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P),
 }
+_SIGNATURES["flash_fwd_v1_launch"] = _SIGNATURES["flash_fwd_launch"]
+_SIGNATURES["ssd_scan_v1_launch"] = _SIGNATURES["ssd_scan_launch"]
 
 
 def find_nvcc() -> Optional[str]:
@@ -57,7 +63,7 @@ def find_nvcc() -> Optional[str]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 

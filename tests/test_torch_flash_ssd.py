@@ -210,13 +210,86 @@ def test_launchers_take_only_cuda_tensors():
     q = torch.zeros((1, 4, 2, 8))
     with pytest.raises(ValueError, match="CUDA"):
         fk._launch_flash_fwd(q, q, q, True, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.flash_fwd_v1(q, q, q)
     x = torch.zeros((1, 4, 2, 8))
     dt = torch.zeros((1, 4, 2))
     bc = torch.zeros((1, 4, 1, 8))
     with pytest.raises(ValueError, match="CUDA"):
         sk._launch_ssd_scan(x, dt, torch.zeros(2), bc, bc, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.ssd_scan_v1(x, dt, torch.zeros(2), bc, bc, 4)
     meta = torch.zeros((1, 4, 2, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fk.flash_fwd(meta, meta, meta)
     with pytest.raises(ValueError, match="mixed devices"):
         sk.ssd_scan(meta, dt, torch.zeros(2), bc, bc)
+
+
+def _tf32(t):
+    """f32 rounded to nearest tf32 (10 mantissa bits, ties away from zero),
+    as cvt.rna.tf32.f32 rounds it."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _ssd_scan_mma_emulated(x, dt, A, Bm, Cm, chunk):
+    """The tensor-core SSD kernel's chunk arithmetic (csrc/ssd_scan_mma.cu)
+    at its rounding points: C B^T exact in f32 from 16-bit inputs, M =
+    (C B^T) exp(cum_i - cum_j) dt_j rounded to x's dtype, the state as an
+    operand of C state^T and the decay-scaled x of the state update
+    rounded to tf32, everything else f32; y rounded to x's dtype."""
+    S, H = x.shape[1], x.shape[2]
+    rep = H // Bm.shape[2]
+    Bh = Bm.repeat_interleave(rep, 2).float()
+    Ch = Cm.repeat_interleave(rep, 2).float()
+    xf = x.float()
+    st = torch.zeros(x.shape[0], H, x.shape[3], Bm.shape[3])
+    ys = []
+    for t0 in range(0, S, chunk):
+        sl = slice(t0, min(S, t0 + chunk))
+        d = dt[:, sl]
+        cum = torch.cumsum(d * A, 1)                             # (B,L,H)
+        Lc = cum.shape[1]
+        cb = torch.einsum("bihn,bjhn->bhij", Ch[:, sl], Bh[:, sl])
+        ct = cum.permute(0, 2, 1)
+        m = cb * torch.exp(ct[..., :, None] - ct[..., None, :]) \
+            * d.permute(0, 2, 1)[..., None, :]
+        m = torch.where(torch.tril(torch.ones(Lc, Lc, dtype=torch.bool)), m,
+                        torch.zeros(()))
+        m = m.to(x.dtype).float()
+        y = torch.einsum("bhij,bjhp->bihp", m, xf[:, sl])
+        y = y + torch.einsum("bihn,bhpn->bihp", Ch[:, sl], _tf32(st)) \
+            * torch.exp(cum)[..., None]
+        ys.append(y)
+        w = d * torch.exp(cum[:, -1:] - cum)
+        st = st * torch.exp(cum[:, -1])[..., None, None] + torch.einsum(
+            "bjhp,bjhn->bhpn", _tf32(w[..., None] * xf[:, sl]), Bh[:, sl])
+    return torch.cat(ys, 1).to(x.dtype), st
+
+
+def test_ssd_mma_rounding_points_stay_within_bound():
+    """The tensor-core route's documented rounding points (bf16 M, tf32
+    state and decay-scaled x) keep the scan within the card tests' bound,
+    1e-2 of max|y| and of max|state|, of the reference's f32 quadratic
+    form on the same bf16 inputs."""
+    B, S, H, P, G, N, chunk = 1, 1024, 4, 64, 1, 64, 256
+    rs = np.random.default_rng(13)
+    x = rs.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.logaddexp(rs.standard_normal((B, S, H)), 0).astype(np.float32)
+    A = (-np.exp(rs.standard_normal(H) * 0.3)).astype(np.float32)
+    Bm = (rs.standard_normal((B, S, G, N)) * 0.5).astype(np.float32)
+    Cm = (rs.standard_normal((B, S, G, N)) * 0.5).astype(np.float32)
+    xb, Bb, Cb = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, Bm, Cm))
+    jy, js = jax_ssd_naive(*(jnp.asarray(a) for a in (
+        xb.float().numpy(), dt, A, Bb.float().numpy(), Cb.float().numpy())))
+    jy, js = np.asarray(jy), np.asarray(js)
+    y, st = _ssd_scan_mma_emulated(xb, torch.from_numpy(dt),
+                                   torch.from_numpy(A), Bb, Cb, chunk)
+    assert y.dtype == torch.bfloat16
+    assert np.abs(y.float().numpy() - jy).max() <= 1e-2 * np.abs(jy).max()
+    assert np.abs(st.numpy() - js).max() <= 1e-2 * np.abs(js).max()
+    # the rounding is there: M in bf16 moves y off the f32 chunked scan
+    y32, _ = ssd_scan(xb.float(), torch.from_numpy(dt), torch.from_numpy(A),
+                      Bb.float(), Cb.float(), chunk=chunk)
+    assert not torch.equal(y, y32.to(torch.bfloat16))

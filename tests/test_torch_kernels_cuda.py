@@ -170,6 +170,34 @@ def _tol(dtype, f32):
     return f32 if dtype == torch.float32 else 2e-2
 
 
+def _flash_case(fk, rs, B, Sq, Skv, Hq, Hkv, D, causal, window, dtype):
+    """One flash_fwd launch against its plain version; the launch counts
+    show the route: bf16 / f16 on the tensor cores, f32 on the CUDA
+    cores."""
+    q, k, v = (G(rs.standard_normal(s).astype(np.float32)).to(dtype)
+               for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    n0 = dict(fk.LAUNCHES)
+    out, lse = fk.flash_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    mma = int(dtype != torch.float32)
+    assert fk.LAUNCHES == {"flash_fwd": n0["flash_fwd"] + 1,
+                           "flash_fwd.mma": n0["flash_fwd.mma"] + mma}
+    want, wlse = fk.flash_fwd_plain(q, k, v, causal=causal, window=window)
+    case = (B, Sq, Skv, Hq, Hkv, D, causal, window, dtype)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    # rows with no key under the mask (a window past a short Skv) have no
+    # attention to compare: both give finite, block-size dependent numbers,
+    # as the reference's kernel does
+    live = wlse > -1e29
+    assert torch.equal(live, lse > -1e29), case
+    assert bool(torch.isfinite(out).all()), case
+    if bool(live.any()):
+        assert float((out.float() - want.float())[live].abs().max()) < \
+            _tol(dtype, 2e-5), case
+        assert float((lse - wlse)[live].abs().max()) < \
+            _tol(dtype, 1e-4), case
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_flash_fwd_kernel_matches_plain(mk, seed):
     """Random shapes: head_dim 112 and other non-powers of two, ragged
@@ -185,29 +213,56 @@ def test_flash_fwd_kernel_matches_plain(mk, seed):
         Sq = int(rs.integers(1, 300))
         Skv = Sq if causal else int(rs.integers(1, 300))
         window = int(rs.choice([0, 0, 17, 100]))
-        dtype = _F16[it % 3]
-        q, k, v = (G(rs.standard_normal(s).astype(np.float32)).to(dtype)
-                   for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
-                             (B, Skv, Hkv, D)))
-        n0 = fk.LAUNCHES["flash_fwd"]
-        out, lse = fk.flash_fwd(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        assert fk.LAUNCHES["flash_fwd"] == n0 + 1
-        want, wlse = fk.flash_fwd_plain(q, k, v, causal=causal,
-                                        window=window)
-        case = (B, Sq, Skv, Hq, Hkv, D, causal, window, dtype)
-        assert out.dtype == dtype and lse.dtype == torch.float32
-        # rows with no key under the mask (a window past a short Skv) have
-        # no attention to compare: both give finite, block-size dependent
-        # numbers, as the reference's kernel does
-        live = wlse > -1e29
-        assert torch.equal(live, lse > -1e29), case
-        assert bool(torch.isfinite(out).all()), case
-        if bool(live.any()):
-            assert float((out.float() - want.float())[live].abs().max()) < \
-                _tol(dtype, 2e-5), case
-            assert float((lse - wlse)[live].abs().max()) < \
-                _tol(dtype, 1e-4), case
+        _flash_case(fk, rs, B, Sq, Skv, Hq, Hkv, D, causal, window,
+                    _F16[it % 3])
+
+
+# every edge the tensor-core route pads or masks, and the serve shape
+FLASH_EDGES = [
+    # B, Sq, Skv, Hq, Hkv, D, causal, window, dtype
+    (2, 130, 130, 4, 2, 8, True, 0, torch.bfloat16),
+    (1, 100, 100, 2, 2, 24, True, 0, torch.float16),
+    (1, 77, 77, 2, 1, 240, True, 0, torch.bfloat16),
+    (2, 200, 200, 8, 2, 112, True, 0, torch.float16),
+    (1, 190, 190, 8, 2, 64, True, 40, torch.bfloat16),
+    (1, 70, 150, 4, 4, 20, False, 0, torch.bfloat16),
+    (1, 150, 70, 4, 1, 36, False, 0, torch.float16),
+    (1, 65, 65, 2, 2, 112, True, 0, torch.float32),
+    (4, 2048, 2048, 32, 32, 112, True, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_EDGES, ids=str)
+def test_flash_fwd_kernel_edges(mk, case):
+    fk, _ = mk
+    _flash_case(fk, np.random.default_rng(7), *case)
+
+
+def _ssd_case(ssk, rs, B, S, H, P, G_, N, chunk, dtype):
+    """One ssd_scan launch against its plain version; the launch counts
+    show the route."""
+    x = G(rs.standard_normal((B, S, H, P)).astype(np.float32)).to(dtype)
+    dt = G(np.logaddexp(rs.standard_normal((B, S, H)), 0)
+           .astype(np.float32) * 0.5)
+    A = G((-np.exp(rs.standard_normal(H) * 0.3)).astype(np.float32))
+    Bm = G((rs.standard_normal((B, S, G_, N)) * 0.5)
+           .astype(np.float32)).to(dtype)
+    Cm = G((rs.standard_normal((B, S, G_, N)) * 0.5)
+           .astype(np.float32)).to(dtype)
+    n0 = dict(ssk.LAUNCHES)
+    y, fin = ssk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    mma = int(dtype != torch.float32)
+    assert ssk.LAUNCHES == {"ssd_scan": n0["ssd_scan"] + 1,
+                            "ssd_scan.mma": n0["ssd_scan.mma"] + mma}
+    wy, wfin = ssk.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    case = (B, S, H, P, G_, N, chunk, dtype)
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    assert float((y.float() - wy.float()).abs().max()) <= \
+        tol * max(1.0, float(wy.float().abs().max())), case
+    assert float((fin - wfin).abs().max()) <= \
+        tol * max(1.0, float(wfin.abs().max())), case
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -224,27 +279,26 @@ def test_ssd_scan_kernel_matches_plain(mk, seed):
         N = int(rs.choice([8, 16, 64, 128]))
         S = int(rs.integers(1, 400))
         chunk = int(rs.choice([16, 50, 64, 128, 256]))
-        dtype = _F16[it % 3]
-        x = G(rs.standard_normal((B, S, H, P)).astype(np.float32)).to(dtype)
-        dt = G(np.logaddexp(rs.standard_normal((B, S, H)), 0)
-               .astype(np.float32) * 0.5)
-        A = G((-np.exp(rs.standard_normal(H) * 0.3)).astype(np.float32))
-        Bm = G((rs.standard_normal((B, S, G_, N)) * 0.5)
-               .astype(np.float32)).to(dtype)
-        Cm = G((rs.standard_normal((B, S, G_, N)) * 0.5)
-               .astype(np.float32)).to(dtype)
-        n0 = ssk.LAUNCHES["ssd_scan"]
-        y, fin = ssk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
-        torch.cuda.synchronize()
-        assert ssk.LAUNCHES["ssd_scan"] == n0 + 1
-        wy, wfin = ssk.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
-        case = (B, S, H, P, G_, N, chunk, dtype)
-        assert y.dtype == dtype and fin.dtype == torch.float32
-        tol = 1e-3 if dtype == torch.float32 else 1e-2
-        assert float((y.float() - wy.float()).abs().max()) <= \
-            tol * max(1.0, float(wy.float().abs().max())), case
-        assert float((fin - wfin).abs().max()) <= \
-            tol * max(1.0, float(wfin.abs().max())), case
+        _ssd_case(ssk, rs, B, S, H, P, G_, N, chunk, _F16[it % 3])
+
+
+# every edge the tensor-core route pads or masks, and the serve shape
+SSD_EDGES = [
+    # B, S, H, P, G, N, chunk, dtype
+    (2, 300, 4, 64, 1, 64, 50, torch.bfloat16),
+    (1, 130, 2, 8, 1, 8, 64, torch.float16),
+    (2, 200, 4, 48, 2, 24, 128, torch.bfloat16),
+    (1, 1, 2, 64, 1, 64, 256, torch.bfloat16),
+    (1, 700, 2, 100, 2, 128, 1024, torch.float16),
+    (1, 90, 2, 20, 1, 40, 32, torch.float32),
+    (4, 2048, 112, 64, 1, 64, 256, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", SSD_EDGES, ids=str)
+def test_ssd_scan_kernel_edges(mk, case):
+    _, ssk = mk
+    _ssd_case(ssk, np.random.default_rng(8), *case)
 
 
 def test_reduced_hybrid_model_on_cuda_matches_cpu(mk):
