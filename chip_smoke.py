@@ -5,14 +5,20 @@
 
 1. builds the port's CUDA kernels (`src/repro_torch/csrc/`) with nvcc
    into `build/repro_torch/`, one nvcc per source, all started together;
-2. swarm slice: holds each swarm kernel (`rarest_keys`, `island_has`,
-   `match_requests`) against its plain PyTorch version on CUDA tensors at
-   the main path's shapes, exactly, and times it; drives the batched
-   flash-crowd loop (Scenario VII at N=2000, Scenario IX at N=500 with 8
-   islands, both arms) on the card, checks that every swarm kernel
-   launched during it, and checks every virtual-time result against
-   `src/repro_torch/reference_runs.json` (the reference package's values
-   under PYTHONHASHSEED=0);
+2. swarm slice: holds each swarm kernel against its plain PyTorch
+   version on CUDA tensors at the main path's shapes, exactly, and times
+   it: the fused `rarest_orders` / `cost_orders` (keys and their stable
+   order in one launch) against the plain keys and a stable argsort,
+   beside the keys kernel with `torch.sort` that it replaced;
+   `island_has`; the dense `match_requests` (C = 8..512) and
+   `match_requests_ragged` on pump-shaped CSR rows (degrees 1-64, and
+   1-600 with the wide route); drives the batched flash-crowd loop
+   (Scenario VII at N=2000, Scenario IX at N=500 with 8 islands, both
+   arms) on the card, checks that every swarm kernel launched during it,
+   that the pump launched the matcher at most once and the fused orders
+   once, prints the launches per route and per pump, and checks every
+   virtual-time result against `src/repro_torch/reference_runs.json`
+   (the reference package's values under PYTHONHASHSEED=0);
 3. serve slice: holds `flash_fwd` and `ssd_scan` against their plain
    versions (the reference's kernel-test cases and the serve path's
    shapes: f32 on the CUDA-core kernels, bf16 on the tensor-core ones),
@@ -193,31 +199,51 @@ def kernel_phase(torch, sk):
             f"bytes={n_bytes} bound_ms={b_ms:.6f} ({b_by})"
             + (f" library_ms={lib_ms:.5f}" if lib_ms is not None else ""))
 
-    # ---- rarest_keys (+ stable sort = rarest_orders / cost_orders) ------ #
+    # ---- rarest_orders / cost_orders: keys and stable order, fused ------ #
     R, P = 2000, 64
     counts = up(rs.integers(0, 2001, P).astype(np.int64))
     offsets = up(rs.integers(0, 60_000, R).astype(np.int64))
     missing = up((rs.random((R, P)) < 0.6).astype(np.uint8))
     cost = up(rs.choice(np.array([0, 1, 7, 15, 64]), (R, P))
               .astype(np.int64))
-    span = (int(counts.max().item()) + 1) * P * P
+    max_count = int(counts.max().item())
+    span = (max_count + 1) * P * P
     for case, pc, sp in (("R=2000 P=64", None, 0),
                          ("R=2000 P=64 cost", cost, span)):
-        got = sk.rarest_keys(counts, offsets, P, missing=missing,
-                             piece_cost=pc, span=sp)
-        want = sk.rarest_keys_plain(counts, offsets, P, missing=missing,
+        def fused(pc=pc):
+            if pc is None:
+                return sk.rarest_orders(missing, counts, offsets, P)
+            return sk.cost_orders(missing, counts, offsets, pc, P,
+                                  max_count=max_count)
+
+        def v1(pc=pc, sp=sp):
+            return sk._argsort_rows(sk.rarest_keys(
+                counts, offsets, P, missing=missing, piece_cost=pc, span=sp))
+
+        keys = sk.rarest_keys_plain(counts, offsets, P, missing=missing,
                                     piece_cost=pc, span=sp)
-        if not torch.equal(sk._argsort_rows(got), sk._argsort_rows(want)):
-            fail(f"rarest orders [{case}] disagree")
+        want = torch.sort(keys, dim=1, stable=True).indices.to(torch.int32)
+        got = fused()
+        if not torch.equal(v1(), want):
+            fail(f"rarest keys + torch.sort [{case}] disagree")
         ins = [counts, offsets, missing] + ([pc] if pc is not None else [])
+        # keys (~8 integer ops an entry) and a sort (log2 P compares)
         check("rarest_keys", case, got, want, nbytes(*ins, got),
-              R * P * (8 if pc is None else 10),
-              lambda pc=pc, sp=sp: sk.rarest_keys(
+              R * P * ((8 if pc is None else 10) + int(np.log2(P))),
+              fused,
+              lambda pc=pc, sp=sp: sk.rarest_orders_plain(
                   counts, offsets, P, missing=missing, piece_cost=pc,
                   span=sp),
-              lambda pc=pc, sp=sp: sk.rarest_keys_plain(
-                  counts, offsets, P, missing=missing, piece_cost=pc,
-                  span=sp))
+              library=lambda k=keys: torch.sort(
+                  k, dim=1, stable=True).indices.to(torch.int32))
+        turns = [device_ms(f) for f in (v1, fused, fused, v1)]
+        v1_keys = device_ms(lambda pc=pc, sp=sp: sk.rarest_keys(
+            counts, offsets, P, missing=missing, piece_cost=pc, span=sp))
+        rec = records["rarest_keys"][-1]
+        rec.update(v1_ms=(turns[0] + turns[3]) / 2, v1_keys_ms=v1_keys)
+        log(f"[kernel] rarest_keys {case}: turns (v1 keys + torch.sort, "
+            f"fused, fused, v1) {' '.join(f'{t:.5f}' for t in turns)} ms; "
+            f"v1 keys kernel alone {v1_keys:.5f} ms")
 
     # ---- island_has ----------------------------------------------------- #
     for N, K in ((500, 8), (2000, 8)):
@@ -235,7 +261,7 @@ def kernel_phase(torch, sk):
               lambda h=have, m=member: sk.island_has_plain(h, m),
               library=lambda h=hf, m=mf: (m @ h) > 0)
 
-    # ---- match_requests ------------------------------------------------- #
+    # ---- match_requests: dense, then ragged (CSR) rows ----------------- #
     N = 2000
     have = up((rs.random((N, P)) < 0.3).astype(np.uint8))
     full = up((rs.random(N) < 0.01).astype(np.uint8))
@@ -244,6 +270,9 @@ def kernel_phase(torch, sk):
                 .astype(np.int32))
     n_walk = up(rs.integers(0, P + 1, R).astype(np.int32))
     budgets = up(rs.integers(0, 5, R).astype(np.int32))
+    # data-dependent work: the steps this data walks, each testing every
+    # candidate of the row
+    walked = torch.minimum(n_walk, torch.full_like(n_walk, P)).long()
     for C in (8, 32, 128, 512):
         cand_np = np.stack([rs.choice(N, C, replace=False)
                             for _ in range(R)]).astype(np.int32)
@@ -254,19 +283,70 @@ def kernel_phase(torch, sk):
         args = (orders, n_walk, budgets, cand, cand_ok, key, have, full)
         got = sk.match_requests(*args)
         want = sk.match_requests_plain(*args)
-        # data-dependent work: the steps this data walks, each testing
-        # every candidate of the row
-        steps = int(torch.minimum(n_walk, torch.full_like(n_walk, P))
-                    .sum().item())
         check("match_requests", f"R={R} P={P} C={C} N={N}", got, want,
               nbytes(orders, n_walk, budgets, cand, cand_ok, key, have,
-                     full, got), steps * C * 4,
+                     full, got), int(walked.sum()) * C * 4,
               lambda a=args: sk.match_requests(*a),
               lambda a=args: sk.match_requests_plain(*a))
+    # a pump's shape: the pump's order rows (more than the matched rows,
+    # read through row_of), each row its own degree: 1900 rows of degree
+    # 1-64 and 1-600, and a pump as Scenario VII at N=2000 launches one
+    # (40 rows, degrees 1-53 but one of 1100 and one of 1900)
+    for name, hi, sub in (("1-64", 64, 1900), ("1-600", 600, 1900),
+                          ("VII-like", 53, 40)):
+        deg = np.minimum(np.exp(rs.uniform(0, np.log(hi + 1), R))
+                         .astype(np.int64), hi)
+        deg = np.maximum(deg, 1)
+        deg[0] = hi
+        if name == "VII-like":
+            deg[3], deg[17] = 1900, 1100
+        ptr_np = np.zeros(R + 1, dtype=np.int64)
+        np.cumsum(deg, out=ptr_np[1:])
+        nnz = int(ptr_np[-1])
+        cand_np = rs.integers(0, N, nnz).astype(np.int32)
+        row_of = up(rs.permutation(R)[:sub].astype(np.int32))
+        ptr = up(ptr_np[: sub + 1].astype(np.int32))
+        n_sub = int(ptr_np[sub])
+        cand = up(cand_np[:n_sub])
+        cand_ok = up((rs.random(n_sub) < 0.8).astype(np.uint8))
+        key = up((rs.integers(0, 4, n_sub) * 2 ** 20
+                  + rank[cand_np[:n_sub]]).astype(np.int32))
+        dmax = int(deg[:sub].max())
+        args = (orders, row_of, ptr, cand, cand_ok, key, n_walk[:sub],
+                budgets[:sub], have, full)
+        host_ptr = ptr_np[: sub + 1]
+        got = sk.match_requests_ragged(*args, cand_ptr_host=host_ptr)
+        want = sk.match_requests_ragged_plain(*args)
+        steps = walked[:sub]
+        check("match_requests", f"ragged R={sub} P={P} degrees {name} "
+              f"(nnz={n_sub}, route {sk._match_route(P, dmax)}) N={N}",
+              got, want, nbytes(*args[:8], have, full, got),
+              int((steps * torch.from_numpy(deg[:sub]).to(dev)).sum()) * 4,
+              lambda a=args, h=host_ptr: sk.match_requests_ragged(
+                  *a, cand_ptr_host=h),
+              lambda a=args: sk.match_requests_ragged_plain(*a))
     return records
 
 
 # ======================== end-to-end phase ============================== #
+SWARM_KERNELS = ("rarest_keys", "island_has", "match_requests")
+
+
+def pump_launches(what, launched):
+    """Every pump launches the fused orders once and the matcher at most
+    once: fail otherwise; print the launches per route and per pump."""
+    pumps = launched["rarest_keys"]
+    fused = launched["rarest_keys.warp"]
+    if fused != pumps:
+        fail(f"{what}: {pumps - fused} piece orders did not take the fused "
+             f"kernel: {json.dumps(launched)}")
+    if launched["match_requests"] > pumps:
+        fail(f"{what}: {launched['match_requests']} matcher launches over "
+             f"{pumps} pumps")
+    log(f"[e2e] {what} launches by route {json.dumps(launched)}; per pump: "
+        f"matcher {launched['match_requests'] / max(pumps, 1):.3f}, "
+        f"island_has {launched['island_has'] / max(pumps, 1):.3f}")
+
 def summarize(scenario, res):
     if scenario == "scenario_vii":
         return {k: res[k] for k in METRICS}
@@ -294,6 +374,7 @@ def end_to_end_phase(torch, sk, scenarios):
             fail(f"{name}: ran on {[a['device'] for a in arms]}")
         got = summarize(entry["scenario"], res)
         launched = {k: sk.LAUNCHES[k] - before[k] for k in sk.LAUNCHES}
+        pump_launches(name, launched)
         log(f"[e2e] {name} {json.dumps(entry['params'])}: wall_s={wall:.3f} "
             + " | ".join(
                 f"events={a['events']} events_per_sec="
@@ -927,10 +1008,10 @@ def main():
     sk.reset_launches()
     end_to_end_phase(torch, sk, scenarios)
     launches = dict(sk.LAUNCHES)
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in SWARM_KERNELS if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    log(f"[e2e] launches over the main path: {json.dumps(launches)}")
+    pump_launches("main path", launches)
 
     # ---- serve slice ----------------------------------------------------- #
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -959,7 +1040,9 @@ def main():
             "max_abs_err": max(r["max_abs_err"] for r in records[name]),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "v1_ms": rec.get("v1_ms")})
+            "library_ms": rec["library_ms"], "v1_ms": rec.get("v1_ms"),
+            "route_launches": {k: v for k, v in launches.items()
+                               if k.startswith(name + ".")}})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -52,11 +52,12 @@ counterpart:
                           scalar engine's deterministic
                           optimistic-unchoke rotation;
       4. pump           — piece orders from ONE `rarest_orders` kernel
-                          call; holder matching for ALL rows in one
-                          fused `match_requests` kernel that walks order
-                          positions (<= P vectorized steps independent
-                          of N), candidates taken straight from the
-                          unchoke adjacency and the busy ledger;
+                          call; holder matching for ALL rows in ONE
+                          fused `match_requests_ragged` kernel call that
+                          walks order positions (<= P steps independent
+                          of N) over each row's own candidates (CSR),
+                          taken straight from the unchoke adjacency and
+                          the busy ledger;
       5. endgame        — rows whose every missing piece is in flight
                           (pure ledger-counter selection) duplicate
                           requests to the per-piece `holder_topk`
@@ -109,7 +110,8 @@ import torch
 
 from repro_torch.core.swarm_kernels import (KEY_INF32, choke_order,
                                             cost_orders, holder_topk,
-                                            island_has, match_requests,
+                                            island_has,
+                                            match_requests_ragged,
                                             min_island_cost, rarest_orders)
 
 _DEVICE_TYPES = ("cuda", "cpu")
@@ -542,6 +544,10 @@ class SwarmHub:
         self.topology = None
         self.cost_matrix: Optional[np.ndarray] = None
         self.cost_matrix_d: Optional[torch.Tensor] = None
+        # the matcher's int32 staging: pinned on the host and one device
+        # copy per pump (grown to a power of two as needed)
+        self._stage_h: Optional[torch.Tensor] = None
+        self._stage_d: Optional[torch.Tensor] = None
 
     def _up(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> tensor on the hub's device."""
@@ -1193,8 +1199,8 @@ class SwarmHub:
         lowest name).  Pure: returns ([(piece, holder_row)], starved)
         without touching any state.  Slow path for rows with shun/ban
         state (and the decide_requests test bridge); the fused
-        `match_requests` kernel reproduces this walk for all clean rows
-        at once."""
+        `match_requests_ragged` kernel reproduces this walk for all clean
+        rows at once."""
         px = st.clients[i]
         app_id = st.app_id
         pending = px.pending.get(app_id, {})
@@ -1255,11 +1261,11 @@ class SwarmHub:
         """Fused pump: budgets and missing masks come straight off the
         ledger counters (no dict walks), piece orders from ONE
         `rarest_orders` kernel call, and holder matching for every clean
-        row from `match_requests` — candidates gathered from the
-        unchoke adjacency bucketed by degree so total work is O(edges),
-        busy holders excluded via the compact per-row busy list.  Rows
-        with shun/ban state (or choke globally off) fall back to the
-        scalar `_match_row`."""
+        row from ONE `match_requests_ragged` call — each row's own
+        candidates (CSR) from the unchoke adjacency, so total work is
+        O(edges), busy holders excluded via the compact per-row busy
+        list.  Rows with shun/ban state (or choke globally off) fall back
+        to the scalar `_match_row`."""
         n = st.n
         avail_moved = st.avail_epoch != st.pump_epoch
         sel = np.zeros(n, dtype=bool)
@@ -1317,9 +1323,48 @@ class SwarmHub:
                 self._issue(st, i, piece_id, j, now)
             st.starved[i] = bool(starved_out[k])
 
-    # candidate-width buckets: padding waste is bounded (~4x) so total
-    # matching work stays O(unchoke edges), not O(rows x max degree)
-    _BUCKETS = (8, 32, 128, 512, 2048, 8192, 1 << 30)
+    def _staging(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(host, device) int32 staging of at least ``n`` words.  The host
+        buffer is pinned on the card, so one non-blocking copy uploads it.
+        Reusing it is safe because every pump ends in the blocking
+        device-to-host copy of its picks, after which the previous upload
+        has finished."""
+        if self._stage_h is None or self._stage_h.numel() < n:
+            size = 1 << max(int(n) - 1, 1023).bit_length()
+            if self.device.type == "cuda":
+                self._stage_h = torch.empty(size, dtype=torch.int32,
+                                            pin_memory=True)
+                self._stage_d = torch.empty(size, dtype=torch.int32,
+                                            device=self.device)
+            else:
+                self._stage_h = torch.empty(size, dtype=torch.int32)
+                self._stage_d = self._stage_h
+        return self._stage_h, self._stage_d
+
+    def _match_call(self, st: SwarmState, orders_d: torch.Tensor,
+                    parts: Tuple[np.ndarray, ...],
+                    ok: np.ndarray) -> torch.Tensor:
+        """Pack the matcher's host inputs (int32 ``parts``: cand_ptr,
+        row_of, n_walk, budgets, cand, cand_key; then the ``ok`` bytes)
+        into the staging buffer, upload it with one copy and launch
+        `match_requests_ragged` on views of it."""
+        sizes = [a.size for a in parts]
+        n_words = sum(sizes) + (ok.size + 3) // 4
+        host, dev = self._staging(n_words)
+        h = host.numpy()
+        views, at = [], 0
+        for a, n in zip(parts, sizes):
+            h[at:at + n] = a
+            views.append(dev[at:at + n])
+            at += n
+        h.view(np.uint8)[4 * at:4 * at + ok.size] = ok
+        ok_d = dev.view(torch.uint8)[4 * at:4 * at + ok.size]
+        if dev is not host:
+            dev[:n_words].copy_(host[:n_words], non_blocking=True)
+        ptr_d, row_of_d, walk_d, budget_d, cand_d, key_d = views
+        return match_requests_ragged(orders_d, row_of_d, ptr_d, cand_d, ok_d,
+                                     key_d, walk_d, budget_d, st.have_d,
+                                     st.full_d, cand_ptr_host=parts[0])
 
     def _match_fast(self, st: SwarmState, rows: np.ndarray,
                     fast: np.ndarray, orders_d: torch.Tensor,
@@ -1327,58 +1372,50 @@ class SwarmHub:
                     n_missing: np.ndarray,
                     decisions: List[Optional[List[Tuple[int, int]]]],
                     starved_out: np.ndarray) -> None:
-        """Fused holder matching for the clean rows: one `match_requests`
-        kernel call per degree bucket.  The kernel reads this pump's
-        orders (`orders_d`) and the have/full planes on the device;
-        `orders` is their host copy."""
+        """Fused holder matching for the clean rows: ONE
+        `match_requests_ragged` call over every row that has candidates,
+        each row's candidates laid out flat (CSR) in the order of
+        ``fast``.  The kernel reads this pump's orders (`orders_d`, row
+        ``row_of[r]``) and the have/full planes on the device; `orders` is
+        their host copy."""
         deg = st.ub_n[rows[fast]]
-        ranks = st.ranks
-        lo = 0
-        for hi in self._BUCKETS:
-            inb = (deg > lo if lo else deg >= 0) & (deg <= hi)
-            lo = hi
-            if not inb.any():
-                continue
-            idx = fast[np.nonzero(inb)[0]]
-            sub = rows[idx]
-            C = int(st.ub_n[sub].max())
-            if C == 0:
-                # no unchoked-by holders at all: no requests, starved
-                # (scalar `_usable_rows` empty -> ([], True))
-                for k in idx.tolist():
-                    decisions[k] = []
-                    starved_out[k] = True
-                continue
-            cnts = st.ub_n[sub]
-            cand = st.ub_rows[sub, :C]
-            valid = np.arange(C)[None, :] < cnts[:, None]
-            safe = np.where(valid, cand, 0)
-            ok = valid & ((st.have_n[safe] > 0) | st.full[safe]) \
-                & st.alive[safe] & (cand != sub[:, None])
-            B = int(st.busy_n[sub].max())
-            if B:
-                bz = st.busy_rows[sub, :B]
-                bval = np.arange(B)[None, :] < st.busy_n[sub][:, None]
-                bz = np.where(bval, bz, -1)
-                ok &= ~(cand[:, :, None] == bz[:, None, :]).any(axis=2)
-            key = ranks[safe]
-            if self.cost_matrix is not None:
-                key = self.cost_matrix[st.island[sub][:, None],
-                                       st.island[safe]] \
-                    * _CHOKE_COST_SHIFT + key
-            _, picks = self._kernel(lambda: match_requests(
-                orders_d[self._up(idx.astype(np.int64))],
-                self._up(n_missing[idx].astype(np.int32)),
-                self._up(budgets[idx].astype(np.int32)),
-                self._up(cand.astype(np.int32)), self._up(ok),
-                self._up(key.astype(np.int32)), st.have_d, st.full_d))
-            for kk, k in enumerate(idx.tolist()):
-                pk = picks[kk]
-                got = np.nonzero(pk >= 0)[0]
-                decisions[k] = [(int(orders[k, g]), int(pk[g]))
-                                for g in got.tolist()]
-                starved_out[k] = (got.size < n_missing[k]
-                                  and got.size < budgets[k])
+        for k in fast[deg == 0].tolist():
+            # no unchoked-by holders at all: no requests, starved
+            # (scalar `_usable_rows` empty -> ([], True))
+            decisions[k] = []
+            starved_out[k] = True
+        idx = fast[deg > 0]
+        if idx.size == 0:
+            return
+        sub = rows[idx]
+        cnts = st.ub_n[sub].astype(np.int64)
+        ptr = np.zeros(idx.size + 1, dtype=np.int64)
+        np.cumsum(cnts, out=ptr[1:])
+        rowid = np.repeat(np.arange(idx.size), cnts)
+        owner = sub[rowid]
+        cand = st.ub_rows[owner, np.arange(ptr[-1]) - ptr[rowid]]
+        ok = ((st.have_n[cand] > 0) | st.full[cand]) & st.alive[cand] \
+            & (cand != owner)
+        B = int(st.busy_n[sub].max())
+        if B:
+            bz = st.busy_rows[sub, :B]
+            bval = np.arange(B)[None, :] < st.busy_n[sub][:, None]
+            bz = np.where(bval, bz, -1)
+            ok &= ~(cand[:, None] == bz[rowid]).any(axis=1)
+        key = st.ranks[cand]
+        if self.cost_matrix is not None:
+            key = self.cost_matrix[st.island[owner], st.island[cand]] \
+                * _CHOKE_COST_SHIFT + key
+        _, picks = self._kernel(self._match_call, st, orders_d,
+                                (ptr, idx, n_missing[idx], budgets[idx],
+                                 cand, key), ok)
+        for kk, k in enumerate(idx.tolist()):
+            pk = picks[kk]
+            got = np.nonzero(pk >= 0)[0]
+            decisions[k] = [(int(orders[k, g]), int(pk[g]))
+                            for g in got.tolist()]
+            starved_out[k] = (got.size < n_missing[k]
+                              and got.size < budgets[k])
 
     def _endgame(self, st: SwarmState, now: float) -> None:
         """Fused endgame: row selection is pure ledger arithmetic

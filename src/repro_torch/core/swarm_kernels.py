@@ -10,14 +10,18 @@ switch: the device of the tensors decides the path.
     (`csrc/swarm_kernels.cu`, built by `repro_torch.kernels_build`), or
     raises — nothing falls back to the plain version;
   * a CPU tensor takes the plain PyTorch version beside each kernel
-    (`rarest_keys_plain`, `island_has_plain`, `match_requests_plain`);
+    (`rarest_keys_plain`, `rarest_orders_plain`, `island_has_plain`,
+    `match_requests_plain`, `match_requests_ragged_plain`);
   * any other device raises.
 
-Three functions are kernels: `rarest_keys` (the sort stays a library
-`torch.sort(stable=True)`, as the argsort stayed in XLA), `island_has` and
-`match_requests`.  `choke_order`, `min_island_cost` and `holder_topk` are
-plain torch ops on whatever device their inputs live on.  Each kernel
-wrapper adds one to `LAUNCHES[name]` where it launches, and nowhere else.
+The kernels: `rarest_keys` (the keys alone), `rarest_orders` /
+`cost_orders` (keys and their stable order in one launch), `island_has`,
+and `match_requests` / `match_requests_ragged` (dense or CSR candidate
+rows, one launch for all of them).  `choke_order`, `min_island_cost` and
+`holder_topk` are plain torch ops on whatever device their inputs live
+on.  Each kernel wrapper adds one to `LAUNCHES[name]` where it launches,
+and nowhere else; ``name.route`` counts the launches of each route that
+the shapes choose (see `_orders_route`, `_match_route`).
 
 Keys are int64 throughout (the reference numpy backend's width), so the
 int32 ceiling of the Pallas scoring kernel (counts * P^2 < 2^31) does not
@@ -43,8 +47,10 @@ KEY_INF32 = np.int32(2 ** 30)
 # "no holder anywhere" ALTO cost: above any real cost (<= 15)
 COST_NONE = np.int64(64)
 
-LAUNCHES: Dict[str, int] = {"rarest_keys": 0, "island_has": 0,
-                            "match_requests": 0}
+LAUNCHES: Dict[str, int] = {
+    "rarest_keys": 0, "rarest_keys.warp": 0, "rarest_keys.sort": 0,
+    "island_has": 0, "match_requests": 0, "match_requests.reg": 0,
+    "match_requests.wide": 0}
 
 
 def reset_launches() -> None:
@@ -102,7 +108,8 @@ def _launch_rarest_keys(counts: torch.Tensor, offsets: torch.Tensor,
         piece_cost.data_ptr() if piece_cost is not None else None,
         int(span), rows, n, out.data_ptr(), _stream(counts.device))
     _check(rc, "rarest_keys")
-    LAUNCHES["rarest_keys"] += 1
+    if rows > 0:
+        LAUNCHES["rarest_keys"] += 1
     return out
 
 
@@ -135,13 +142,76 @@ def _argsort_rows(keys: torch.Tensor) -> torch.Tensor:
     return torch.sort(keys, dim=1, stable=True).indices.to(torch.int32)
 
 
+def rarest_orders_plain(counts: torch.Tensor, offsets: torch.Tensor,
+                        n_pieces: int, missing: Optional[torch.Tensor] = None,
+                        piece_cost: Optional[torch.Tensor] = None,
+                        span: int = 0) -> torch.Tensor:
+    """(R, P) int32: each row's piece ids in the stable ascending order of
+    its `rarest_keys_plain` keys."""
+    return _argsort_rows(rarest_keys_plain(counts, offsets, n_pieces,
+                                           missing, piece_cost, span))
+
+
+# the fused order kernel takes one warp a row, up to 64 pieces; wider rows
+# take the keys kernel, then torch.sort
+_ORDERS_WARP_MAX = 64
+
+
+def _orders_route(n: int) -> str:
+    return "warp" if n <= _ORDERS_WARP_MAX else "sort"
+
+
+def _launch_rarest_orders(counts: torch.Tensor, offsets: torch.Tensor,
+                          n: int, missing: Optional[torch.Tensor],
+                          piece_cost: Optional[torch.Tensor],
+                          span: int) -> torch.Tensor:
+    route = _orders_route(n)
+    if route == "sort":
+        out = _argsort_rows(_launch_rarest_keys(counts, offsets, n, missing,
+                                                piece_cost, span))
+        if out.shape[0] > 0:
+            LAUNCHES["rarest_keys.sort"] += 1
+        return out
+    rows = offsets.shape[0]
+    _require(counts, "counts", torch.int64, (n,))
+    _require(offsets, "offsets", torch.int64, (rows,))
+    if missing is not None:
+        _require(missing, "missing", torch.uint8, (rows, n))
+    if piece_cost is not None:
+        _require(piece_cost, "piece_cost", torch.int64, (rows, n))
+    out = torch.empty((rows, n), dtype=torch.int32, device=counts.device)
+    rc = _lib().rarest_orders_launch(
+        counts.data_ptr(), offsets.data_ptr(),
+        missing.data_ptr() if missing is not None else None,
+        piece_cost.data_ptr() if piece_cost is not None else None,
+        int(span), rows, n, out.data_ptr(), _stream(counts.device))
+    _check(rc, "rarest_orders")
+    if rows > 0:
+        LAUNCHES["rarest_keys"] += 1
+        LAUNCHES["rarest_keys.warp"] += 1
+    return out
+
+
+def _orders(counts: torch.Tensor, offsets: torch.Tensor, n_pieces: int,
+            missing: Optional[torch.Tensor],
+            piece_cost: Optional[torch.Tensor], span: int) -> torch.Tensor:
+    if not on_card(counts, offsets, missing, piece_cost):
+        return rarest_orders_plain(counts, offsets, n_pieces, missing,
+                                   piece_cost, span)
+    return _launch_rarest_orders(
+        counts.to(torch.int64).contiguous(),
+        offsets.to(torch.int64).contiguous(), max(int(n_pieces), 1),
+        None if missing is None else _bytes(missing),
+        None if piece_cost is None
+        else piece_cost.to(torch.int64).contiguous(), span)
+
+
 def rarest_orders(missing: torch.Tensor, counts: torch.Tensor,
                   offsets: torch.Tensor, n_pieces: int) -> torch.Tensor:
     """Batched `rarest_first_order_np`: (R, P) int32 piece order per node;
     row r's first ``missing[r].sum()`` entries are its missing pieces in
-    rarest-first order."""
-    return _argsort_rows(rarest_keys(counts, offsets, n_pieces,
-                                     missing=missing))
+    rarest-first order.  On the card, keys and order are one launch."""
+    return _orders(counts, offsets, n_pieces, missing, None, 0)
 
 
 # ================== topology-aware (P4P) scoring ======================== #
@@ -167,7 +237,8 @@ def _launch_island_has(have: torch.Tensor,
     rc = _lib().island_has_launch(have.data_ptr(), member.data_ptr(), n, k,
                                   p, out.data_ptr(), _stream(have.device))
     _check(rc, "island_has")
-    LAUNCHES["island_has"] += 1
+    if k > 0 and p > 0:
+        LAUNCHES["island_has"] += 1
     return out.view(torch.bool)
 
 
@@ -189,6 +260,16 @@ def min_island_cost(avail: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
     return plane.amin(dim=1)
 
 
+def _cost_span(counts: torch.Tensor, n_pieces: int,
+               max_count: Optional[int]) -> int:
+    """``(max_count + 1) * n^2``: the cost term's scale, above any rarest
+    key; ``max_count`` from a host copy of the counts avoids a sync."""
+    n = max(int(n_pieces), 1)
+    if max_count is None:
+        max_count = int(counts.max().item()) if counts.numel() else 0
+    return (int(max_count) + 1) * n * n
+
+
 def cost_rarest_keys(counts: torch.Tensor, offsets: torch.Tensor,
                      piece_cost: torch.Tensor, n_pieces: int,
                      missing: Optional[torch.Tensor] = None,
@@ -196,12 +277,9 @@ def cost_rarest_keys(counts: torch.Tensor, offsets: torch.Tensor,
     """Cost-primary keys ``piece_cost * span + rarest_key`` with
     ``span = (max_count + 1) * n^2``.  Pass ``max_count`` from a host copy
     of the counts to avoid a device sync."""
-    n = max(int(n_pieces), 1)
-    if max_count is None:
-        max_count = int(counts.max().item()) if counts.numel() else 0
-    span = (int(max_count) + 1) * n * n
     return rarest_keys(counts, offsets, n_pieces, missing=missing,
-                       piece_cost=piece_cost, span=span)
+                       piece_cost=piece_cost,
+                       span=_cost_span(counts, n_pieces, max_count))
 
 
 def cost_orders(missing: torch.Tensor, counts: torch.Tensor,
@@ -210,9 +288,8 @@ def cost_orders(missing: torch.Tensor, counts: torch.Tensor,
         -> torch.Tensor:
     """Batched cost-aware piece order: (cheapest-holder cost, rarity,
     rotated id, id) per node; same contract as `rarest_orders`."""
-    return _argsort_rows(cost_rarest_keys(counts, offsets, piece_cost,
-                                          n_pieces, missing=missing,
-                                          max_count=max_count))
+    return _orders(counts, offsets, n_pieces, missing, piece_cost,
+                   _cost_span(counts, n_pieces, max_count))
 
 
 # ========================= choke ranking ================================ #
@@ -285,43 +362,101 @@ def match_requests_plain(orders: torch.Tensor, n_walk: torch.Tensor,
     return picks
 
 
-# rows per block for the warp-per-row matcher; the taken flags of all its
-# rows must fit the default 48 KB of dynamic shared memory, above which
-# they move to an (R, C) scratch in device memory
-_MATCH_WARPS = 4
-_SMEM_LIMIT = 48 * 1024
+def match_requests_ragged_plain(orders: torch.Tensor, row_of: torch.Tensor,
+                                cand_ptr: torch.Tensor, cand: torch.Tensor,
+                                cand_ok: torch.Tensor, cand_key: torch.Tensor,
+                                n_walk: torch.Tensor, budgets: torch.Tensor,
+                                have: torch.Tensor, full: torch.Tensor) \
+        -> torch.Tensor:
+    """`match_requests_ragged` by padding the CSR rows into the dense form
+    (``cand = -1``, not usable, past each row's degree)."""
+    dev = orders.device
+    R = row_of.shape[0]
+    ptr = cand_ptr.to(torch.int64)
+    deg = ptr[1:] - ptr[:-1]
+    C = int(deg.max().item()) if R else 0
+    flat = torch.arange(int(ptr[0]), int(ptr[-1]), device=dev)
+    rowid = torch.repeat_interleave(torch.arange(R, device=dev), deg)
+    col = flat - ptr[rowid]
+    dcand = torch.full((R, C), -1, dtype=torch.int32, device=dev)
+    dok = torch.zeros((R, C), dtype=torch.bool, device=dev)
+    dkey = torch.full((R, C), int(KEY_INF32), dtype=torch.int32, device=dev)
+    dcand[rowid, col] = cand[flat].to(torch.int32)
+    dok[rowid, col] = cand_ok[flat].to(torch.bool)
+    dkey[rowid, col] = cand_key[flat].to(torch.int32)
+    return match_requests_plain(orders[row_of.to(torch.int64)], n_walk,
+                                budgets, dcand, dok, dkey, have, full)
 
 
-def _launch_match_requests(orders, n_walk, budgets, cand, cand_ok, cand_key,
-                           have, full) -> torch.Tensor:
-    R, P = orders.shape
-    C = cand.shape[1]
+# the register route keeps a row's sorted candidates in registers, up to
+# 16 slots a lane (degree 512) with a 64-bit have mask each (P <= 64);
+# other rows take the wide route, whose scratch holds each candidate
+# slot's packed word and ceil(P / 64) mask words
+_REG_MAX_DEGREE = 512
+_REG_MAX_PIECES = 64
+
+
+def _match_route(n_pieces: int, max_degree: int) -> str:
+    return ("reg" if n_pieces <= _REG_MAX_PIECES
+            and max_degree <= _REG_MAX_DEGREE else "wide")
+
+
+def _launch_match(orders, row_of, cand_ptr, stride, n_walk, budgets, cand,
+                  cand_ok, cand_key, have, full, max_degree) -> torch.Tensor:
+    """One launch over every row: dense (``cand_ptr`` None, ``stride``
+    candidates a row) or CSR; ``row_of`` None walks ``orders[r]``.
+    ``max_degree`` must be the largest row degree: it picks the route and
+    sizes the wide route's scratch."""
+    P = orders.shape[1]
+    R = n_walk.shape[0]
     N = have.shape[0]
-    _require(orders, "orders", torch.int32, (R, P))
+    _require(orders, "orders", torch.int32, (orders.shape[0], P))
+    if row_of is not None:
+        _require(row_of, "row_of", torch.int32, (R,))
+    if cand_ptr is not None:
+        _require(cand_ptr, "cand_ptr", torch.int32, (R + 1,))
     _require(n_walk, "n_walk", torch.int32, (R,))
     _require(budgets, "budgets", torch.int32, (R,))
-    _require(cand, "cand", torch.int32, (R, C))
-    _require(cand_ok, "cand_ok", torch.uint8, (R, C))
-    _require(cand_key, "cand_key", torch.int32, (R, C))
+    _require(cand, "cand", torch.int32, tuple(cand.shape))
+    _require(cand_ok, "cand_ok", torch.uint8, tuple(cand.shape))
+    _require(cand_key, "cand_key", torch.int32, tuple(cand.shape))
     _require(have, "have", torch.uint8, (N, P))
     _require(full, "full", torch.uint8, (N,))
     dev = orders.device
     picks = torch.empty((R, P), dtype=torch.int32, device=dev)
-    warps = max(1, min(_MATCH_WARPS, _SMEM_LIMIT // max(C, 1)))
-    scratch = None
-    smem = warps * C
-    if C > _SMEM_LIMIT:
-        warps, smem = _MATCH_WARPS, 0
-        scratch = torch.empty((R, C), dtype=torch.uint8, device=dev)
+    route = _match_route(P, max_degree)
+    scratch = (torch.empty(cand.numel() * (1 + (P + 63) // 64),
+                           dtype=torch.int64, device=dev)
+               if route == "wide" else None)
     rc = _lib().match_requests_launch(
-        orders.data_ptr(), n_walk.data_ptr(), budgets.data_ptr(),
-        cand.data_ptr(), cand_ok.data_ptr(), cand_key.data_ptr(),
-        have.data_ptr(), full.data_ptr(), R, P, C,
-        scratch.data_ptr() if scratch is not None else None, warps, smem,
+        orders.data_ptr(), row_of.data_ptr() if row_of is not None else None,
+        cand_ptr.data_ptr() if cand_ptr is not None else None, int(stride),
+        n_walk.data_ptr(), budgets.data_ptr(), cand.data_ptr(),
+        cand_ok.data_ptr(), cand_key.data_ptr(), have.data_ptr(),
+        full.data_ptr(), R, P, int(max_degree), cand.numel(),
+        scratch.data_ptr() if scratch is not None else None,
         picks.data_ptr(), _stream(dev))
     _check(rc, "match_requests")
-    LAUNCHES["match_requests"] += 1
+    if R > 0:
+        LAUNCHES["match_requests"] += 1
+        LAUNCHES[f"match_requests.{route}"] += 1
     return picks
+
+
+def _launch_match_requests(orders, n_walk, budgets, cand, cand_ok, cand_key,
+                           have, full) -> torch.Tensor:
+    R, C = cand.shape
+    _require(orders, "orders", torch.int32, (R, orders.shape[1]))
+    return _launch_match(orders, None, None, C, n_walk, budgets, cand,
+                         cand_ok, cand_key, have, full, C)
+
+
+def _launch_match_requests_ragged(orders, row_of, cand_ptr, cand, cand_ok,
+                                  cand_key, n_walk, budgets, have, full,
+                                  max_degree) -> torch.Tensor:
+    _require(cand, "cand", torch.int32, (cand.shape[0],))
+    return _launch_match(orders, row_of, cand_ptr, 0, n_walk, budgets, cand,
+                         cand_ok, cand_key, have, full, max_degree)
 
 
 def match_requests(orders: torch.Tensor, n_walk: torch.Tensor,
@@ -336,7 +471,7 @@ def match_requests(orders: torch.Tensor, n_walk: torch.Tensor,
         return match_requests_plain(orders, n_walk, budgets, cand, cand_ok,
                                     cand_key, have, full)
     R, P = orders.shape
-    if R == 0 or cand.dim() != 2 or cand.shape[1] == 0:
+    if R == 0 or P == 0 or cand.dim() != 2 or cand.shape[1] == 0:
         return torch.full((R, P), -1, dtype=torch.int32,
                           device=orders.device)
     i32 = torch.int32
@@ -345,6 +480,46 @@ def match_requests(orders: torch.Tensor, n_walk: torch.Tensor,
         budgets.to(i32).contiguous(), cand.to(i32).contiguous(),
         _bytes(cand_ok), cand_key.to(i32).contiguous(), _bytes(have),
         _bytes(full))
+
+
+def match_requests_ragged(orders: torch.Tensor, row_of: torch.Tensor,
+                          cand_ptr: torch.Tensor, cand: torch.Tensor,
+                          cand_ok: torch.Tensor, cand_key: torch.Tensor,
+                          n_walk: torch.Tensor, budgets: torch.Tensor,
+                          have: torch.Tensor, full: torch.Tensor,
+                          cand_ptr_host: Optional[np.ndarray] = None) \
+        -> torch.Tensor:
+    """`match_requests` over ragged rows in one launch: row r walks
+    ``orders[row_of[r]]`` (the pump's order rows, read in place) over the
+    candidates ``cand[cand_ptr[r]:cand_ptr[r + 1]]`` with ``cand_ok`` and
+    ``cand_key`` beside them; ``n_walk``, ``budgets`` (R,).  Returns (R, P)
+    int32 picks.  ``cand_ptr_host``, a host copy of ``cand_ptr``, gives
+    the largest degree (which picks the route) without a device sync;
+    without it, ``cand_ptr`` is read back."""
+    if not on_card(orders, row_of, cand_ptr, cand, cand_ok, cand_key, n_walk,
+                   budgets, have, full):
+        return match_requests_ragged_plain(orders, row_of, cand_ptr, cand,
+                                           cand_ok, cand_key, n_walk, budgets,
+                                           have, full)
+    R, P = row_of.shape[0], orders.shape[1]
+    if R == 0 or P == 0:
+        return torch.full((R, P), -1, dtype=torch.int32,
+                          device=orders.device)
+    if cand_ptr_host is None:
+        max_degree = int((cand_ptr[1:] - cand_ptr[:-1]).max().item())
+    else:
+        host = np.asarray(cand_ptr_host)
+        if host.shape != (R + 1,):
+            raise ValueError(f"cand_ptr_host has shape {host.shape}, "
+                             f"expected ({R + 1},)")
+        max_degree = int(np.diff(host).max())
+    i32 = torch.int32
+    return _launch_match_requests_ragged(
+        orders.to(i32).contiguous(), row_of.to(i32).contiguous(),
+        cand_ptr.to(i32).contiguous(), cand.to(i32).contiguous(),
+        _bytes(cand_ok), cand_key.to(i32).contiguous(),
+        n_walk.to(i32).contiguous(), budgets.to(i32).contiguous(),
+        _bytes(have), _bytes(full), int(max_degree))
 
 
 # ===================== endgame holder top-k ============================= #

@@ -5,19 +5,42 @@
 // at the call site.
 //
 // 1. rarest_keys     replaces src/repro/core/swarm_kernels.py
-//                    _rarest_keys_pallas (rarest-first composite keys).
+//                    _rarest_keys_pallas (rarest-first composite keys);
+//    rarest_orders   the same keys and their stable per-row order in one
+//                    kernel (what the hub's pump runs).
 // 2. island_has      replaces _island_has_pallas (P4P island availability).
-// 3. match_requests  replaces _match_requests_pallas (greedy holder walk).
+// 3. match_requests  replaces _match_requests_pallas (greedy holder walk),
+//                    dense rows or ragged (CSR) rows in one launch.
 //
 // Each kernel's note says what bounds it on the card and what the design
 // does about it.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr long long kKeyInf = 1LL << 62;   // swarm_kernels.KEY_INF
+constexpr unsigned kFull = 0xffffffffu;
+
+// a row's offset reduced to [0, n), once per row
+__device__ __forceinline__ int offset_mod(long long offset, int n) {
+  long long om = offset % n;
+  return (int)(om < 0 ? om + n : om);
+}
+
+// the key of piece p < n of a row whose offset mod n is om
+__device__ __forceinline__ long long rarest_key(
+    const int64_t* __restrict__ counts, int om,
+    const uint8_t* __restrict__ missing, const int64_t* __restrict__ cost,
+    long long span, int n, size_t idx, int p) {
+  const int rot = p + om < n ? p + om : p + om - n;
+  long long key = ((long long)counts[p] * n + rot) * n + p;
+  if (cost != nullptr) key += (long long)cost[idx] * span;
+  if (missing != nullptr && missing[idx] == 0) key = kKeyInf;
+  return key;
+}
 
 // ----------------------------------------------------------------------
 // rarest_keys: key[r,p] = (counts[p]*n + (p + offsets[r]) mod n)*n + p,
@@ -28,9 +51,11 @@ constexpr long long kKeyInf = 1LL << 62;   // swarm_kernels.KEY_INF
 // cost plane read once; the arithmetic is a handful of integer ops per
 // byte.  Design: one thread per (r, p), consecutive threads on
 // consecutive pieces so every load and the store coalesce; the mask and
-// the cost term are fused here so the (R, P) keys are written once and
-// never re-read before the sort.  Keys are int64 throughout, which lifts
-// the Pallas kernel's counts * P^2 < 2^31 ceiling.
+// the cost term are fused here so the (R, P) keys are written once.  Keys
+// are int64 throughout, which lifts the Pallas kernel's counts * P^2 <
+// 2^31 ceiling.  The hub's pump takes rarest_orders below; this kernel
+// serves callers that want the keys, and piece counts above the sorting
+// kernel's width (keys, then torch.sort).
 // ----------------------------------------------------------------------
 __global__ void rarest_keys_kernel(const int64_t* __restrict__ counts,
                                    const int64_t* __restrict__ offsets,
@@ -43,12 +68,86 @@ __global__ void rarest_keys_kernel(const int64_t* __restrict__ counts,
   if (idx >= total) return;
   int r = (int)(idx / n);
   int p = (int)(idx - (long long)r * n);
-  long long rot = ((long long)p + offsets[r]) % n;
-  if (rot < 0) rot += n;
-  long long key = ((long long)counts[p] * n + rot) * n + p;
-  if (cost != nullptr) key += (long long)cost[idx] * span;
-  if (missing != nullptr && missing[idx] == 0) key = kKeyInf;
-  out[idx] = key;
+  out[idx] = rarest_key(counts, offset_mod(offsets[r], n), missing, cost,
+                        span, n, (size_t)idx, p);
+}
+
+// ----------------------------------------------------------------------
+// rarest_orders: the keys above and, per row, the stable ascending order
+// of its keys as int32 piece ids (torch.sort(stable=True) on the keys).
+//
+// Bound: bytes (mask and cost read once, the int32 order written once);
+// at the pump's R <= 2000, P = 64 that is ~0.2 us, below what one launch
+// costs, so what matters is that keys, sort and cast are one launch and
+// the int64 keys never reach device memory.  Design: the sort is on
+// (key, index) pairs, which is exactly a stable sort: non-INF keys of a
+// row are distinct anyway (each embeds p), KEY_INF entries tie and the
+// index orders them.  Rows pad to a power of two with (INT64_MAX, index
+// >= n).  P <= 64: one warp per row, two pairs a lane (element e = s*32 +
+// lane), a bitonic network over register shuffles.  Wider rows take the
+// keys kernel and torch.sort.
+// ----------------------------------------------------------------------
+__device__ __forceinline__ bool pair_less(long long a, int ai, long long b,
+                                          int bi) {
+  return a < b || (a == b && ai < bi);
+}
+
+constexpr int kOrderWarps = 4;   // rows per block of the warp route
+
+__global__ void rarest_orders_warp_kernel(const int64_t* __restrict__ counts,
+                                          const int64_t* __restrict__ offsets,
+                                          const uint8_t* __restrict__ missing,
+                                          const int64_t* __restrict__ cost,
+                                          long long span, int rows, int n,
+                                          int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kOrderWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const int om = offset_mod(offsets[r], n);
+  long long key[2];
+  int id[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int p = s * 32 + lane;
+    id[s] = p;
+    key[s] = p < n ? rarest_key(counts, om, missing, cost, span, n,
+                                (size_t)r * n + p, p)
+                   : LLONG_MAX;
+  }
+#pragma unroll
+  for (int k = 2; k <= 64; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j == 32) {
+        // k == 64: slot 0 against slot 1 of the same lane, ascending
+        if (pair_less(key[1], id[1], key[0], id[0])) {
+          long long tk = key[0]; key[0] = key[1]; key[1] = tk;
+          int ti = id[0]; id[0] = id[1]; id[1] = ti;
+        }
+      } else {
+        const bool lower = (lane & j) == 0;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int e = s * 32 + lane;
+          const bool asc = (e & k) == 0;
+          const long long ok = __shfl_xor_sync(kFull, key[s], j);
+          const int oi = __shfl_xor_sync(kFull, id[s], j);
+          // the lower element of an ascending pair keeps the smaller
+          const bool other_first = pair_less(ok, oi, key[s], id[s]);
+          if (other_first == (lower == asc)) {
+            key[s] = ok;
+            id[s] = oi;
+          }
+        }
+      }
+    }
+  }
+  int32_t* orow = out + (size_t)r * n;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int e = s * 32 + lane;
+    if (e < n) orow[e] = id[s];
+  }
 }
 
 // ----------------------------------------------------------------------
@@ -95,95 +194,360 @@ __global__ void island_has_kernel(const uint8_t* __restrict__ have,
 // untaken usable candidate with the lowest (cand_key, c) that holds piece
 // orders[r,k] (have or full), mark it taken, spend one unit of budget.
 // The row stops at min(n_walk, P), at budget 0, or when every candidate
-// is taken.  picks[r,k] is the chosen holder row or -1.
+// is taken.  picks[r,k] is the chosen holder row or -1.  Rows are dense
+// (row r's candidates at r*stride, degree stride) or ragged (CSR:
+// cand_ptr[r] .. cand_ptr[r+1]); row r walks orders[row_of[r]], so the
+// pump's order rows are read in place.
 //
-// Bound: latency of the sequential walk (up to P dependent steps per
-// row), then bytes: the candidate arrays and the gathered have[cand, p]
-// bytes.  Design: one warp per row; the C candidates are strided across
-// the 32 lanes and the winner is a warp argmin over a packed 64-bit
-// (key, c) word, lowest c on ties as np.argmin has it.  have[cand, p] is
-// gathered on the fly, so the (R, C, P) availability tensor the numpy and
-// Pallas versions build never exists.  The taken flags live in dynamic
-// shared memory sized by C (or in a caller-provided (R, C) scratch when
-// C is too wide for shared memory), never in registers; the free count is
-// kept in a register and decremented, not rescanned.
+// Bound: latency of the walk (up to P dependent steps a row); the bytes
+// (candidate arrays, one have row per candidate) are ~0.4 us at the
+// pump's sizes.  Design (register route, P <= 64 and degree <= 512):
+//  * a row's candidates are sorted once by the packed (key, c) word, so
+//    the winner at any step is the FIRST sorted candidate that is untaken
+//    and holds p (lowest key, then lowest c, as np.argmin);
+//  * each lane keeps its sorted candidates' have rows as 64-bit masks
+//    (all ones where full), loaded once with 16-byte loads, in one round
+//    with no branch on full; a pick clears its mask, so the untaken set
+//    lives in the masks too;
+//  * a step is a shift per slot and a find-first-set in each lane (its
+//    slots are sorted), then the minimum over the lanes' first available
+//    words in two single-instruction warp reductions.  No load from
+//    memory and no shuffle tree;
+//  * a warp a row, ceil(degree / 32) slots a lane (a power of two), 4
+//    rows a block.
+// Wide route (P > 64, or degree > 512): the block's 4 warps walk such a
+// row together after their own rows; each candidate's packed word and
+// have mask (ceil(P / 64) words) go once to a scratch beside the CSR, and
+// a step scans them and takes the block's minimum.
 // ----------------------------------------------------------------------
+constexpr int kRowsPerBlock = 4;
+constexpr int kRegMaxDegree = 512;
+constexpr unsigned long long kNone = ~0ULL;
+
+struct MatchArgs {
+  const int32_t* orders;     // (orders rows, P)
+  const int32_t* row_of;     // (rows,) or null: row r walks orders[r]
+  const int32_t* cand_ptr;   // (rows + 1,) or null: dense, stride
+  int stride;
+  const int32_t* n_walk;
+  const int32_t* budgets;
+  const int32_t* cand;
+  const uint8_t* cand_ok;
+  const int32_t* cand_key;
+  const uint8_t* have;       // (N, P)
+  const uint8_t* full;       // (N,)
+  int rows;
+  int P;
+  // wide route: 1 + ceil(P / 64) words per candidate slot, or null
+  unsigned long long* scratch;
+  long long n_slots;         // candidate slots: R * stride, or the CSR's
+  int32_t* picks;            // (rows, P)
+};
+
 __device__ __forceinline__ unsigned long long pack_key(int32_t key, int c) {
   // flip the sign bit so signed keys order as unsigned words
   unsigned long long k = (unsigned long long)((uint32_t)key ^ 0x80000000u);
   return (k << 32) | (unsigned long long)(uint32_t)c;
 }
 
-__global__ void match_requests_kernel(const int32_t* __restrict__ orders,
-                                      const int32_t* __restrict__ n_walk,
-                                      const int32_t* __restrict__ budgets,
-                                      const int32_t* __restrict__ cand,
-                                      const uint8_t* __restrict__ cand_ok,
-                                      const int32_t* __restrict__ cand_key,
-                                      const uint8_t* __restrict__ have,
-                                      const uint8_t* __restrict__ full,
-                                      int rows, int n_pieces, int n_cand,
-                                      uint8_t* __restrict__ scratch,
-                                      int32_t* __restrict__ picks) {
-  extern __shared__ uint8_t smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (r >= rows) return;
-  uint8_t* taken = scratch != nullptr ? scratch + (size_t)r * n_cand
-                                      : smem + (size_t)warp * n_cand;
-  const int32_t* crow = cand + (size_t)r * n_cand;
-  const int32_t* krow = cand_key + (size_t)r * n_cand;
-  const uint8_t* okrow = cand_ok + (size_t)r * n_cand;
-  const int32_t* orow = orders + (size_t)r * n_pieces;
-  int32_t* prow = picks + (size_t)r * n_pieces;
+// the warp's smallest 64-bit word, in two single-instruction reductions
+__device__ __forceinline__ unsigned long long warp_min64(
+    unsigned long long v) {
+  const unsigned hi = __reduce_min_sync(kFull, (unsigned)(v >> 32));
+  const unsigned lo = __reduce_min_sync(
+      kFull, (unsigned)(v >> 32) == hi ? (unsigned)v : 0xffffffffu);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+__device__ __forceinline__ void cmp_swap(unsigned long long& x,
+                                         unsigned long long& y, bool asc) {
+  const bool swap = (y < x) == asc;
+  const unsigned long long lo = swap ? y : x;
+  y = swap ? x : y;
+  x = lo;
+}
+
+__device__ __forceinline__ void row_span(const MatchArgs& a, int r,
+                                         int& start, int& deg) {
+  if (a.cand_ptr != nullptr) {
+    start = a.cand_ptr[r];
+    deg = a.cand_ptr[r + 1] - start;
+  } else {
+    start = r * a.stride;
+    deg = a.stride;
+  }
+}
+
+__device__ __forceinline__ const int32_t* order_row(const MatchArgs& a,
+                                                    int r) {
+  const int o = a.row_of != nullptr ? a.row_of[r] : r;
+  return a.orders + (size_t)o * a.P;
+}
+
+// bit i set where byte i of x is not zero: the top bit of each byte of
+// y says so (no carry crosses a byte), and the multiply gathers the four
+// top bits into bits 28..31
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned x) {
+  const unsigned y = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+  return ((y >> 7) * 0x10204080u) >> 28;
+}
+
+// up to 64 bytes of a have row as a bit mask
+__device__ __forceinline__ unsigned long long have_bits(
+    const uint8_t* __restrict__ row, int len) {
+  unsigned long long bits = 0;
+  if ((len & 15) == 0 && ((uintptr_t)row & 15) == 0) {
+    const uint4* v = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q < (len >> 4)) {
+        const uint4 x = __ldg(v + q);
+        const unsigned nib = nonzero_bytes(x.x) | nonzero_bytes(x.y) << 4 |
+                             nonzero_bytes(x.z) << 8 |
+                             nonzero_bytes(x.w) << 12;
+        bits |= (unsigned long long)nib << (16 * q);
+      }
+    }
+  } else {
+    for (int p = 0; p < len; ++p)
+      if (row[p]) bits |= 1ULL << p;
+  }
+  return bits;
+}
+
+// The register route: one row per warp, S slots a lane (S a power of
+// two, 32 * S >= degree).  Lane l's slot s loads candidate c = s * 32 + l
+// (coalesced), then the lane sorts its S slots; ``scand`` is the warp's
+// shared scratch of kRegMaxDegree ints.
+template <int S>
+__device__ void match_row_reg(const MatchArgs& a, int r, int lane,
+                              int* scand) {
+  int start, deg;
+  row_span(a, r, start, deg);
+  const int walk = min(max(a.n_walk[r], 0), a.P);
+  int budget = a.budgets[r];
+
+  // one round of loads: the packed (key, c) words of the usable
+  // candidates (the rest sort last), their holder rows, and the order
+  // (positions lane and lane + 32; P <= 64)
+  unsigned long long w[S];
+  int cpre[S];
+  int n_free = 0;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int c = s * 32 + lane;
+    w[s] = kNone;
+    cpre[s] = -1;
+    if (c < deg) {
+      cpre[s] = a.cand[start + c];
+      if (a.cand_ok[start + c]) {
+        w[s] = pack_key(a.cand_key[start + c], c);
+        ++n_free;
+      }
+    }
+  }
+  const int32_t* orow = order_row(a, r);
+  const int ord0 = lane < a.P ? orow[lane] : 0;
+  const int ord1 = lane + 32 < a.P ? orow[lane + 32] : 0;
+  n_free = __reduce_add_sync(kFull, n_free);
+
+  // bitonic sort of each lane's S slots
+#pragma unroll
+  for (int k = 2; k <= S; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if ((s & j) == 0) cmp_swap(w[s], w[s | j], (s & k) == 0);
+    }
+  }
+
+  // each sorted slot's holder row (through shared memory, by c) and its
+  // availability mask
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int c = s * 32 + lane;
+    if (c < deg) scand[c] = cpre[s];
+  }
+  __syncwarp();
+  unsigned long long m[S];
+  int cj[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    m[s] = 0;
+    cj[s] = -1;
+    if (w[s] != kNone) cj[s] = scand[(int)(uint32_t)(w[s] & 0xffffffffULL)];
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    if (w[s] != kNone) {
+      const int j = cj[s] >= 0 ? cj[s] : 0;   // -1 reads row 0, as plain
+      const unsigned long long hb = have_bits(a.have + (size_t)j * a.P, a.P);
+      m[s] = a.full[j] ? kNone : hb;
+    }
+  }
+
+  // every lane holds the same walk, budget and free count: the loop and
+  // its exits are uniform over the warp
+  int32_t* prow = a.picks + (size_t)r * a.P;
+  unsigned long long picked = 0;
+  for (int k = 0; k < walk && budget > 0 && n_free > 0; ++k) {
+    const int p = __shfl_sync(kFull, k < 32 ? ord0 : ord1, k & 31);
+    unsigned local = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      local |= (unsigned)((m[s] >> p) & 1ULL) << s;
+    // each lane's first hit is its smallest; the warp's smallest wins
+    const int first = __ffs(local) - 1;
+    unsigned long long wv = kNone;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (s == first) wv = w[s];
+    const unsigned long long win = warp_min64(wv);
+    if (win == kNone) continue;
+    if (wv == win) {   // words are distinct: one lane
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (s == first) {
+          prow[k] = cj[s];
+          m[s] = 0;
+        }
+      }
+    }
+    picked |= 1ULL << k;
+    --budget;
+    --n_free;
+  }
+  for (int q = lane; q < a.P; q += 32)
+    if (!((picked >> q) & 1ULL)) prow[q] = -1;
+}
+
+// the wide route: the block's 128 threads walk one row together.  The
+// scratch holds, beside the CSR, each candidate slot's packed word (~0
+// once taken or if unusable) and then its have mask words (word q of slot
+// i at n_slots * (1 + q) + i, all ones where full, 0 where unusable).
+// Thread t handles c = t + 128 i, so every access coalesces and no thread
+// reads another's entries; a step is each thread's scan, a warp minimum
+// and the minimum of the 4 warps' in shared memory.
+constexpr int kBlockThreads = 32 * kRowsPerBlock;
+
+__device__ void match_row_wide(const MatchArgs& a, int r,
+                               unsigned long long* wmin, int* wcount) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int start, deg;
+  row_span(a, r, start, deg);
+  const int W = (a.P + 63) >> 6;
+  unsigned long long* word = a.scratch + start;
+  unsigned long long* mask = a.scratch + a.n_slots + start;
+  const int32_t* orow = order_row(a, r);
+  int32_t* prow = a.picks + (size_t)r * a.P;
 
   int n_free = 0;
-  for (int c = lane; c < n_cand; c += 32) {
-    uint8_t ok = okrow[c] != 0;
-    taken[c] = ok ? 0 : 1;
+#pragma unroll 4
+  for (int c = tid; c < deg; c += kBlockThreads) {
+    const bool ok = a.cand_ok[start + c] != 0;
+    const int32_t key = a.cand_key[start + c];
+    const int j0 = a.cand[start + c];
+    const int j = j0 >= 0 ? j0 : 0;   // -1 reads row 0, as plain
+    const bool f = a.full[j] != 0;
+    const uint8_t* hrow = a.have + (size_t)j * a.P;
+    if (W == 1) {
+      const unsigned long long hb = have_bits(hrow, a.P);
+      mask[c] = ok ? (f ? kNone : hb) : 0ULL;
+    } else {
+      for (int q = 0; q < W; ++q) {
+        const unsigned long long hb =
+            have_bits(hrow + 64 * q, min(64, a.P - 64 * q));
+        mask[(size_t)q * a.n_slots + c] = ok ? (f ? kNone : hb) : 0ULL;
+      }
+    }
+    word[c] = ok ? pack_key(key, c) : kNone;
     n_free += ok;
   }
   for (int off = 16; off > 0; off >>= 1)
-    n_free += __shfl_xor_sync(0xffffffffu, n_free, off);
-  __syncwarp();
+    n_free += __shfl_xor_sync(kFull, n_free, off);
+  if (lane == 0) wcount[warp] = n_free;
+  __syncthreads();
+  n_free = 0;
+#pragma unroll
+  for (int w = 0; w < kRowsPerBlock; ++w) n_free += wcount[w];
 
-  int budget = budgets[r];
-  int walk = n_walk[r];
-  if (walk > n_pieces) walk = n_pieces;
-  if (walk < 0) walk = 0;
-  const unsigned long long kNone = ~0ULL;
+  int budget = a.budgets[r];
+  const int walk = min(max(a.n_walk[r], 0), a.P);
   int k = 0;
   for (; k < walk; ++k) {
     if (budget <= 0 || n_free <= 0) break;
     const int p = orow[k];
+    const unsigned long long* mq = mask + (size_t)(p >> 6) * a.n_slots;
+    const int bit = p & 63;
     unsigned long long best = kNone;
-    for (int c = lane; c < n_cand; c += 32) {
-      if (taken[c]) continue;
-      const int j = crow[c] >= 0 ? crow[c] : 0;   // -1 padding reads row 0
-      if (full[j] || have[(size_t)j * n_pieces + p]) {
-        unsigned long long w = pack_key(krow[c], c);
-        if (w < best) best = w;
-      }
+#pragma unroll 8
+    for (int c = tid; c < deg; c += kBlockThreads) {
+      const unsigned long long mw = mq[c];
+      const unsigned long long wv = word[c];
+      best = ((mw >> bit) & 1ULL) ? min(best, wv) : best;
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      unsigned long long o = __shfl_xor_sync(0xffffffffu, best, off);
-      if (o < best) best = o;
-    }
-    if (best != kNone) {
-      const int c = (int)(uint32_t)(best & 0xffffffffULL);
-      if (lane == 0) {
-        prow[k] = crow[c];
-        taken[c] = 1;
+    best = warp_min64(best);
+    if (lane == 0) wmin[warp] = best;
+    __syncthreads();
+    unsigned long long win = wmin[0];
+#pragma unroll
+    for (int w = 1; w < kRowsPerBlock; ++w) win = min(win, wmin[w]);
+    if (win != kNone) {
+      const int c = (int)(uint32_t)(win & 0xffffffffULL);
+      if (tid == c % kBlockThreads) {   // c's own thread marks it taken
+        prow[k] = a.cand[start + c];
+        word[c] = kNone;
       }
       --budget;
       --n_free;
-    } else if (lane == 0) {
+    } else if (tid == 0) {
       prow[k] = -1;
     }
-    __syncwarp();
+    __syncthreads();   // wmin is rewritten by the next step
   }
-  for (int q = k + lane; q < n_pieces; q += 32) prow[q] = -1;
+  for (int q = k + tid; q < a.P; q += kBlockThreads) prow[q] = -1;
+  __syncthreads();     // wcount is rewritten by the next wide row
+}
+
+__global__ void match_requests_kernel(MatchArgs a) {
+  __shared__ int scand[kRowsPerBlock][kRegMaxDegree];
+  __shared__ unsigned long long wmin[kRowsPerBlock];
+  __shared__ int wcount[kRowsPerBlock];
+  const int lane = threadIdx.x & 31;
+  const int sub = threadIdx.x >> 5;
+  const int base = blockIdx.x * kRowsPerBlock;
+  // every warp reads the block's 4 degrees: its own, and the wide rows
+  const int rq = base + (lane & (kRowsPerBlock - 1));
+  int dq = 0;
+  if (rq < a.rows) {
+    int st;
+    row_span(a, rq, st, dq);
+  }
+  const unsigned wide = __ballot_sync(
+      kFull, lane < kRowsPerBlock && rq < a.rows &&
+                 (a.P > 64 || dq > kRegMaxDegree));
+  // a warp a row on the register route; the block's wide rows after that,
+  // each by the whole block (every warp reaches the same barriers)
+  const int r = base + sub;
+  const int d = __shfl_sync(kFull, dq, sub);
+  if (r < a.rows && !((wide >> sub) & 1u)) {
+    if (d <= 32) {
+      match_row_reg<1>(a, r, lane, scand[sub]);
+    } else if (d <= 64) {
+      match_row_reg<2>(a, r, lane, scand[sub]);
+    } else if (d <= 128) {
+      match_row_reg<4>(a, r, lane, scand[sub]);
+    } else if (d <= 256) {
+      match_row_reg<8>(a, r, lane, scand[sub]);
+    } else {
+      match_row_reg<16>(a, r, lane, scand[sub]);
+    }
+  }
+  for (int q = 0; q < kRowsPerBlock; ++q)
+    if ((wide >> q) & 1u) match_row_wide(a, base + q, wmin, wcount);
 }
 
 }  // namespace
@@ -206,6 +570,22 @@ int rarest_keys_launch(const void* counts, const void* offsets,
   return (int)cudaGetLastError();
 }
 
+// n <= 64 (one warp a row); wider rows are the caller's keys + torch.sort.
+int rarest_orders_launch(const void* counts, const void* offsets,
+                         const void* missing, const void* cost,
+                         long long span, int rows, int n, void* out,
+                         void* stream) {
+  if (n > 64) return (int)cudaErrorInvalidValue;
+  if (rows > 0 && n > 0) {
+    rarest_orders_warp_kernel<<<(rows + kOrderWarps - 1) / kOrderWarps,
+                                32 * kOrderWarps, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)counts, (const int64_t*)offsets,
+        (const uint8_t*)missing, (const int64_t*)cost, span, rows, n,
+        (int32_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
 int island_has_launch(const void* have, const void* member, int n_rows,
                       int k_islands, int n_pieces, void* out, void* stream) {
   if (k_islands > 0 && n_pieces > 0) {
@@ -219,24 +599,41 @@ int island_has_launch(const void* have, const void* member, int n_rows,
   return (int)cudaGetLastError();
 }
 
-// warps_per_block rows share one block; smem_bytes = warps_per_block * C
-// when the taken flags sit in shared memory, 0 when scratch is given.
-int match_requests_launch(const void* orders, const void* n_walk,
-                          const void* budgets, const void* cand,
-                          const void* cand_ok, const void* cand_key,
-                          const void* have, const void* full, int rows,
-                          int n_pieces, int n_cand, void* scratch,
-                          int warps_per_block, int smem_bytes, void* picks,
-                          void* stream) {
+// row_of null: row r walks orders[r]; cand_ptr null: dense rows of
+// `stride` candidates.  max_degree is the largest row degree; when P > 64
+// or max_degree > 512 (the wide route) scratch must hold 1 + ceil(P / 64)
+// 8-byte words per candidate slot, else it may be null.
+int match_requests_launch(const void* orders, const void* row_of,
+                          const void* cand_ptr, int stride,
+                          const void* n_walk, const void* budgets,
+                          const void* cand, const void* cand_ok,
+                          const void* cand_key, const void* have,
+                          const void* full, int rows, int n_pieces,
+                          int max_degree, int n_slots, void* scratch,
+                          void* picks, void* stream) {
+  if ((n_pieces > 64 || max_degree > kRegMaxDegree) && scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
   if (rows > 0) {
-    const int blocks = (rows + warps_per_block - 1) / warps_per_block;
-    match_requests_kernel<<<blocks, 32 * warps_per_block, smem_bytes,
-                            (cudaStream_t)stream>>>(
-        (const int32_t*)orders, (const int32_t*)n_walk,
-        (const int32_t*)budgets, (const int32_t*)cand,
-        (const uint8_t*)cand_ok, (const int32_t*)cand_key,
-        (const uint8_t*)have, (const uint8_t*)full, rows, n_pieces, n_cand,
-        (uint8_t*)scratch, (int32_t*)picks);
+    MatchArgs a;
+    a.orders = (const int32_t*)orders;
+    a.row_of = (const int32_t*)row_of;
+    a.cand_ptr = (const int32_t*)cand_ptr;
+    a.stride = stride;
+    a.n_walk = (const int32_t*)n_walk;
+    a.budgets = (const int32_t*)budgets;
+    a.cand = (const int32_t*)cand;
+    a.cand_ok = (const uint8_t*)cand_ok;
+    a.cand_key = (const int32_t*)cand_key;
+    a.have = (const uint8_t*)have;
+    a.full = (const uint8_t*)full;
+    a.rows = rows;
+    a.P = n_pieces;
+    a.scratch = (unsigned long long*)scratch;
+    a.n_slots = n_slots;
+    a.picks = (int32_t*)picks;
+    const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+    match_requests_kernel<<<blocks, 32 * kRowsPerBlock, 0,
+                            (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
 }

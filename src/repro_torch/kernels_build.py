@@ -41,9 +41,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "rarest_keys_launch": (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P,
                            _P),
+    "rarest_orders_launch": (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P,
+                             _P),
     "island_has_launch": (_P, _P, _I, _I, _I, _P, _P),
-    "match_requests_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _P, _I, _I, _P, _P),
+    "match_requests_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _P, _P, _P),
     "flash_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P),
     "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

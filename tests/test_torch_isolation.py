@@ -132,6 +132,23 @@ def test_launchers_take_only_cuda_tensors():
             torch.zeros((2, 3), dtype=torch.int32),
             torch.zeros((5, 4), dtype=torch.uint8),
             torch.zeros(5, dtype=torch.uint8))
+    for n in (4, 100):              # the warp and sort routes
+        with pytest.raises(ValueError, match="CUDA"):
+            sk._launch_rarest_orders(
+                torch.zeros(n, dtype=torch.int64), o, n,
+                torch.zeros((2, n), dtype=torch.uint8), None, 0)
+    for max_degree in (3, 600):     # the register and wide routes
+        with pytest.raises(ValueError, match="CUDA"):
+            sk._launch_match_requests_ragged(
+                i32, torch.zeros(2, dtype=torch.int32),
+                torch.tensor([0, 1, 3], dtype=torch.int32),
+                torch.zeros(3, dtype=torch.int32),
+                torch.zeros(3, dtype=torch.uint8),
+                torch.zeros(3, dtype=torch.int32),
+                torch.zeros(2, dtype=torch.int32),
+                torch.zeros(2, dtype=torch.int32),
+                torch.zeros((5, 4), dtype=torch.uint8),
+                torch.zeros(5, dtype=torch.uint8), max_degree)
     assert sk.LAUNCHES == before
 
 

@@ -1,7 +1,8 @@
 """The compiled CUDA kernels of `repro_torch` against their plain PyTorch
 versions on the same CUDA tensors, over randomized shapes beyond the main
-path's (odd piece counts, empty rows, the (R, C) scratch path of the
-matcher), plus the torch-op functions on CUDA against the same ops on the
+path's (odd piece counts, empty rows, every route of the fused orders and
+of the dense and ragged matcher, with the route read from `LAUNCHES`),
+plus the torch-op functions on CUDA against the same ops on the
 CPU, and a small batched flash crowd on the card against the CPU path.
 
 These tests need an NVIDIA card and nvcc; they skip elsewhere.  Run them
@@ -56,6 +57,34 @@ def test_rarest_keys_kernel_matches_plain(sk, seed):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("P", [1, 64, 65, 1024, 4096, 4097])
+def test_fused_orders_match_keys_and_stable_sort(sk, P):
+    """Both routes of the piece orders (the fused kernel, a warp a row, to
+    64 pieces; keys then torch.sort above) against the plain keys and a
+    stable argsort, with ties of KEY_INF."""
+    rs = np.random.default_rng(P)
+    route = sk._orders_route(P)
+    for R in (1, 7, 300):
+        counts = G(rs.integers(0, 3_000, P))
+        offsets = G(rs.integers(0, 100_000, R))
+        missing = G(rs.random((R, P)) < rs.choice([0.05, 0.5, 1.0]))
+        cost = G(rs.choice([0, 1, 15, 64], (R, P)))
+        n0 = dict(sk.LAUNCHES)
+        got_r = sk.rarest_orders(missing, counts, offsets, P)
+        got_c = sk.cost_orders(missing, counts, offsets, cost, P)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["rarest_keys"] == n0["rarest_keys"] + 2
+        assert sk.LAUNCHES[f"rarest_keys.{route}"] == \
+            n0[f"rarest_keys.{route}"] + 2
+        span = (int(counts.max()) + 1) * P * P
+        for got, pc, sp in ((got_r, None, 0), (got_c, cost, span)):
+            keys = sk.rarest_keys_plain(counts, offsets, P, missing=missing,
+                                        piece_cost=pc, span=sp)
+            want = torch.sort(keys, dim=1, stable=True).indices.int()
+            assert got.dtype == torch.int32
+            assert torch.equal(got, want), (P, R)
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_island_has_kernel_matches_plain(sk, seed):
     rs = np.random.default_rng(10 + seed)
@@ -75,7 +104,8 @@ def _match_case(rs, R, P, N, C):
     pad = rs.random((R, C)) < 0.1
     cand = np.where(pad, -1, cand).astype(np.int32)
     ok = (rs.random((R, C)) < 0.8) & ~pad
-    key = rs.integers(0, 1 << 26, (R, C)).astype(np.int32)
+    key = rs.integers(0, 1 << int(rs.choice([2, 26])), (R, C)) \
+        .astype(np.int32)
     return (G(np.stack([rs.permutation(P) for _ in range(R)])
               .astype(np.int32)),
             G(rs.integers(0, P + 2, R).astype(np.int32)),
@@ -84,24 +114,66 @@ def _match_case(rs, R, P, N, C):
             G((rs.random(N) < 0.02).astype(np.uint8)))
 
 
-@pytest.mark.parametrize("C", [1, 7, 33, 200, 2048, 13_000])
-def test_match_requests_kernel_matches_plain(sk, C):
-    rs = np.random.default_rng(C)
+def _ragged_from(rs, args, C):
+    """A CSR case from a dense one: row r keeps its first deg[r] usable
+    candidates (degrees 0..C), and walks a permuted order row."""
+    orders, n_walk, budgets, cand, ok, key, have, full = args
+    R = cand.shape[0]
+    deg = torch.from_numpy(rs.integers(0, C + 1, R)).cuda()
+    deg[0] = C
+    keep = torch.arange(C, device="cuda")[None, :] < deg[:, None]
+    keep &= cand >= 0
+    ptr = torch.zeros(R + 1, dtype=torch.int32, device="cuda")
+    ptr[1:] = torch.cumsum(keep.sum(dim=1), 0).to(torch.int32)
+    row_of = torch.from_numpy(rs.permutation(R).astype(np.int32)).cuda()
+    return (orders, row_of, ptr, cand[keep], ok[keep], key[keep], n_walk,
+            budgets, have, full)
+
+
+@pytest.mark.parametrize("P", [None, 1, 7, 33, 48, 64, 65, 100])
+@pytest.mark.parametrize("C", [1, 7, 8, 9, 31, 33, 200, 512, 2048, 13_000])
+def test_match_requests_kernel_matches_plain(sk, C, P):
+    """Dense and ragged launches over every route: 1..16 slots a lane on
+    the register route (P <= 64, degrees to 512; P = 7, 33, 48 take the
+    have rows' byte loop and partial 16-byte loads) and the wide route (P >
+    64 or a degree above 512), read from LAUNCHES.  P None draws three
+    piece counts in 1..100."""
+    rs = np.random.default_rng(C * 1000 + (P or 0))
     for _ in range(3):
-        R, P = int(rs.integers(1, 300)), int(rs.integers(1, 100))
-        args = _match_case(rs, R, P, max(C, 50), C)
-        assert torch.equal(sk.match_requests(*args),
-                           sk.match_requests_plain(*args))
+        R = int(rs.integers(1, 300))
+        Pd = P or int(rs.integers(1, 100))
+        route = sk._match_route(Pd, C)
+        args = _match_case(rs, R, Pd, max(C, 50), C)
+        n0 = dict(sk.LAUNCHES)
+        got = sk.match_requests(*args)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["match_requests"] == n0["match_requests"] + 1
+        assert sk.LAUNCHES[f"match_requests.{route}"] == \
+            n0[f"match_requests.{route}"] + 1
+        assert torch.equal(got, sk.match_requests_plain(*args)), (C, Pd, R)
+        rag = _ragged_from(rs, args, C)
+        ptr_host = rag[2].cpu().numpy()
+        for host in (None, ptr_host):
+            n0 = dict(sk.LAUNCHES)
+            got = sk.match_requests_ragged(*rag, cand_ptr_host=host)
+            torch.cuda.synchronize()
+            rroute = sk._match_route(Pd, int(np.diff(ptr_host).max()))
+            assert sk.LAUNCHES[f"match_requests.{rroute}"] == \
+                n0[f"match_requests.{rroute}"] + 1
+            assert torch.equal(got, sk.match_requests_ragged_plain(*rag)), \
+                (C, Pd, R)
 
 
 def test_match_requests_scratch_path_matches_plain(sk):
-    """C above the shared-memory limit moves the taken flags to an (R, C)
-    scratch in device memory."""
+    """C far above the register route's 512 takes the wide route, each
+    candidate slot's word and mask words in a scratch beside the rows."""
     rs = np.random.default_rng(99)
-    C = sk._SMEM_LIMIT + 1000
+    C = 48 * 1024 + 1000
     args = _match_case(rs, 6, 16, C + 10, C)
+    n0 = sk.LAUNCHES["match_requests.wide"]
     got = sk.match_requests(*args)
     assert torch.equal(got, sk.match_requests_plain(*args))
+    assert sk.LAUNCHES["match_requests.wide"] == n0 + 1
     assert int((got >= 0).sum()) > 0
 
 
