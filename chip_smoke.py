@@ -9,16 +9,30 @@
    version on CUDA tensors at the main path's shapes, exactly, and times
    it: the fused `rarest_orders` / `cost_orders` (keys and their stable
    order in one launch) against the plain keys and a stable argsort,
-   beside the keys kernel with `torch.sort` that it replaced;
-   `island_has`; the dense `match_requests` (C = 8..512) and
+   beside the keys kernel with `torch.sort` that it replaced; the sort
+   route that 128 pieces take (keys kernel + `torch.sort`, R=200) beside
+   `torch.sort` alone; `island_has`; the dense `match_requests` (P=64,
+   C = 8..512; P=128, C = 8/64/200 on the wide route) and
    `match_requests_ragged` on pump-shaped CSR rows (degrees 1-64, and
-   1-600 with the wide route); drives the batched flash-crowd loop
-   (Scenario VII at N=2000, Scenario IX at N=500 with 8 islands, both
-   arms) on the card, checks that every swarm kernel launched during it,
-   that the pump launched the matcher at most once and the fused orders
-   once, prints the launches per route and per pump, and checks every
-   virtual-time result against `src/repro_torch/reference_runs.json`
-   (the reference package's values under PYTHONHASHSEED=0);
+   1-600 with the wide route); then drives on the card, each against
+   `src/repro_torch/reference_runs.json` (the reference package's
+   virtual-time values under PYTHONHASHSEED=0):
+   - Scenario VII at N=2000 and Scenario IX at N=500 with 8 islands
+     (both arms): the batched flash crowd;
+   - Scenario VIII at N=200 batched (fault-free and chaos arms: loss,
+     duplication, jitter, 30% churn with restarts, a partition), each
+     arm's invariants checked on the card, device planes included;
+   - one `ChaosScenario` at N=200 on 8 ISP islands with an island cut
+     off (the P4P arm under faults), its invariants checked;
+   - Scenario X at N=200 (128 pieces: v1 crowd, v2 delta, scratch
+     re-fetch, and the scalar chaos overlay), which must upgrade every
+     volunteer with no stale piece accepted;
+   checks that every swarm kernel launched on this path, that each pump
+   launched the piece orders once on its width's route (fused warp
+   kernel to 64 pieces, keys + `torch.sort` and only the matcher's wide
+   route above) and the matcher at most once, and prints each run's
+   wall, tick and kernel seconds and its launches per route and per
+   pump;
 3. serve slice: holds `flash_fwd` and `ssd_scan` against their plain
    versions (the reference's kernel-test cases and the serve path's
    shapes: f32 on the CUDA-core kernels, bf16 on the tensor-core ones),
@@ -52,9 +66,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 RUNS_FILE = SRC / "repro_torch" / "reference_runs.json"
-CHIP_RUNS = ("vii_n2000", "ix_n500_i8")
-METRICS = ("events", "makespan_s", "full_replication_s", "p99_completion_s",
-           "cross_isp_bytes", "origin_up_mb", "replicas")
+# the entries of reference_runs.json driven on the card, in order
+CHIP_RUNS = ("vii_n2000", "ix_n500_i8", "viii_n200_batched",
+             "chaos_n200_i8_batched", "x_n200")
 SERVE_FILE = SRC / "repro_torch" / "reference_serve.json"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT_OPS_PER_S = 67e12           # non-tensor-core rate (the fp32 table row)
@@ -245,6 +259,30 @@ def kernel_phase(torch, sk):
             f"fused, fused, v1) {' '.join(f'{t:.5f}' for t in turns)} ms; "
             f"v1 keys kernel alone {v1_keys:.5f} ms")
 
+    # ---- the sort route above 64 pieces (Scenario X's 128) ------------- #
+    # (drawn from a generator of their own, so that the other cases'
+    # inputs stay those of earlier runs)
+    rs128 = np.random.default_rng(2128)
+    R128, P128 = 200, 128
+    counts128 = up(rs128.integers(0, 201, P128).astype(np.int64))
+    offsets128 = up(rs128.integers(0, 60_000, R128).astype(np.int64))
+    missing128 = up((rs128.random((R128, P128)) < 0.6).astype(np.uint8))
+    keys128 = sk.rarest_keys_plain(counts128, offsets128, P128,
+                                   missing=missing128)
+    want = torch.sort(keys128, dim=1, stable=True).indices.to(torch.int32)
+    before = sk.LAUNCHES["rarest_keys.sort"]
+    got = sk.rarest_orders(missing128, counts128, offsets128, P128)
+    if sk.LAUNCHES["rarest_keys.sort"] != before + 1:
+        fail("rarest_orders at P=128 did not take the sort route")
+    check("rarest_keys", f"R={R128} P={P128} sort route (keys kernel + "
+          "torch.sort)", got, want,
+          nbytes(counts128, offsets128, missing128, got),
+          R128 * P128 * (8 + int(np.log2(P128))),
+          lambda: sk.rarest_orders(missing128, counts128, offsets128, P128),
+          lambda: sk.rarest_orders_plain(counts128, offsets128, P128,
+                                         missing=missing128),
+          library=lambda: torch.sort(keys128, dim=1, stable=True).indices)
+
     # ---- island_has ----------------------------------------------------- #
     for N, K in ((500, 8), (2000, 8)):
         have = up((rs.random((N, P)) < 0.05).astype(np.uint8))
@@ -286,6 +324,35 @@ def kernel_phase(torch, sk):
         check("match_requests", f"R={R} P={P} C={C} N={N}", got, want,
               nbytes(orders, n_walk, budgets, cand, cand_ok, key, have,
                      full, got), int(walked.sum()) * C * 4,
+              lambda a=args: sk.match_requests(*a),
+              lambda a=args: sk.match_requests_plain(*a))
+    # Scenario X's width: 128 pieces, a swarm of 201 rows, the wide route
+    N128 = 201
+    have128 = up((rs128.random((N128, P128)) < 0.3).astype(np.uint8))
+    full128 = up((rs128.random(N128) < 0.02).astype(np.uint8))
+    rank128 = rs128.permutation(N128)
+    orders128 = up(np.stack([rs128.permutation(P128) for _ in range(R128)])
+                   .astype(np.int32))
+    walk128 = up(rs128.integers(0, P128 + 1, R128).astype(np.int32))
+    budgets128 = up(rs128.integers(0, 5, R128).astype(np.int32))
+    walked128 = walk128.long()
+    for C in (8, 64, 200):
+        cand_np = np.stack([rs128.choice(N128, C, replace=False)
+                            for _ in range(R128)]).astype(np.int32)
+        cand = up(cand_np)
+        cand_ok = up((rs128.random((R128, C)) < 0.8).astype(np.uint8))
+        key = up((rs128.integers(0, 4, (R128, C)) * 2 ** 20
+                  + rank128[cand_np]).astype(np.int32))
+        args = (orders128, walk128, budgets128, cand, cand_ok, key, have128,
+                full128)
+        before = sk.LAUNCHES["match_requests.wide"]
+        got = sk.match_requests(*args)
+        if sk.LAUNCHES["match_requests.wide"] != before + 1:
+            fail(f"match_requests at P={P128} C={C} took another route")
+        want = sk.match_requests_plain(*args)
+        check("match_requests", f"R={R128} P={P128} C={C} N={N128} wide "
+              "route", got, want, nbytes(*args, got),
+              int(walked128.sum()) * C * 4,
               lambda a=args: sk.match_requests(*a),
               lambda a=args: sk.match_requests_plain(*a))
     # a pump's shape: the pump's order rows (more than the matched rows,
@@ -332,14 +399,27 @@ def kernel_phase(torch, sk):
 SWARM_KERNELS = ("rarest_keys", "island_has", "match_requests")
 
 
-def pump_launches(what, launched):
-    """Every pump launches the fused orders once and the matcher at most
-    once: fail otherwise; print the launches per route and per pump."""
+def pump_launches(what, launched, n_pieces=None):
+    """Every pump launches the piece orders once, on the route its width
+    picks (`n_pieces` <= 64: the fused warp kernel; wider: the keys
+    kernel + `torch.sort`, and the matcher's wide route only), and the
+    matcher at most once: fail otherwise.  Without `n_pieces` (a run
+    mixing widths) every pump took one of the two order routes.  Prints
+    the launches per route and per pump."""
     pumps = launched["rarest_keys"]
-    fused = launched["rarest_keys.warp"]
-    if fused != pumps:
-        fail(f"{what}: {pumps - fused} piece orders did not take the fused "
-             f"kernel: {json.dumps(launched)}")
+    warp, srt = launched["rarest_keys.warp"], launched["rarest_keys.sort"]
+    if n_pieces is None:
+        want = (warp + srt, 0)
+    elif n_pieces <= 64:
+        want = (warp, srt)
+    else:
+        want = (srt, warp + launched["match_requests.reg"])
+    if pumps <= 0 or want != (pumps, 0):
+        fail(f"{what}: {pumps} pumps did not all take the piece orders' "
+             f"route for {n_pieces} pieces: {json.dumps(launched)}")
+    if n_pieces is not None and n_pieces > 64 \
+            and launched["match_requests.wide"] <= 0:
+        fail(f"{what}: the matcher's wide route never launched")
     if launched["match_requests"] > pumps:
         fail(f"{what}: {launched['match_requests']} matcher launches over "
              f"{pumps} pumps")
@@ -347,53 +427,96 @@ def pump_launches(what, launched):
         f"matcher {launched['match_requests'] / max(pumps, 1):.3f}, "
         f"island_has {launched['island_has'] / max(pumps, 1):.3f}")
 
-def summarize(scenario, res):
-    if scenario == "scenario_vii":
-        return {k: res[k] for k in METRICS}
-    return {arm: {k: res[arm][k] for k in METRICS} for arm in ("naive", "p4p")}
+
+def run_entry(scenarios, entry, device):
+    """One entry of reference_runs.json on `device`: (result, arms), the
+    arms being the per-hub results that carry the hub's stats.  A
+    "chaos" entry is one `ChaosScenario` whose invariants (the device
+    planes' among them) are checked here; `scenario_viii` checks both of
+    its arms' itself."""
+    scenario, params = entry["scenario"], entry["params"]
+    if scenario == "chaos":
+        from repro_torch.core.chaos import ChaosScenario
+        sc = ChaosScenario(device=device, **params).run()
+        sc.check_invariants()
+        res = dict(sc.report(), device=str(sc.hub.device))
+        return res, [res]
+    res = getattr(scenarios, scenario)(verbose=False, device=device,
+                                       **params)
+    arms = {"scenario_ix": ("naive", "p4p"),
+            "scenario_viii": ("baseline", "chaos")}.get(scenario)
+    return res, [res[a] for a in arms] if arms else [res]
 
 
-def end_to_end_phase(torch, sk, scenarios):
+def entry_pieces(scenarios, entry):
+    """The piece count of an entry's swarm: its parameter, else the
+    scenario's default."""
+    import inspect
+    params = entry["params"]
+    if "n_pieces" in params:
+        return params["n_pieces"]
+    fn = getattr(scenarios, entry["scenario"])
+    return inspect.signature(fn).parameters["n_pieces"].default
+
+
+def end_to_end_phase(torch, sk, scenarios, names=CHIP_RUNS, device="cuda"):
+    """Drive each entry on the card: its virtual-time results must equal
+    reference_runs.json, and each run's launches must follow its width's
+    routes.  (``names`` and ``device`` let it be rehearsed small on the
+    CPU, where nothing launches.)"""
     golden = json.loads(RUNS_FILE.read_text())
     if golden.get("pythonhashseed") != os.environ.get("PYTHONHASHSEED"):
         fail("expected values were taken under another PYTHONHASHSEED")
-    for name in CHIP_RUNS:
+    for name in names:
         entry = golden["runs"][name]
-        run = getattr(scenarios, entry["scenario"])
         before = dict(sk.LAUNCHES)
         t0 = time.perf_counter()
-        res = run(verbose=False, device="cuda", **entry["params"])
-        torch.cuda.synchronize()
+        res, arms = run_entry(scenarios, entry, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        arms = [res] if entry["scenario"] == "scenario_vii" \
-            else [res["naive"], res["p4p"]]
-        if not (res["done"] and res["replicated"]):
-            fail(f"{name}: done={res['done']} "
+        if not (res.get("done", True) and res["replicated"]):
+            fail(f"{name}: done={res.get('done')} "
                  f"replicated={res['replicated']}")
-        if not all(a["device"].startswith("cuda") for a in arms):
-            fail(f"{name}: ran on {[a['device'] for a in arms]}")
-        got = summarize(entry["scenario"], res)
+        if entry["scenario"] == "scenario_x" and not (
+                res["upgraded"] and res["chaos_ready"] and res["no_stale"]
+                and res["stale_accepts"] == 0):
+            fail(f"{name}: upgraded={res['upgraded']} chaos_ready="
+                 f"{res['chaos_ready']} stale_accepts={res['stale_accepts']}")
+        devs = {d for d in [res.get("device")]
+                + [a.get("device") for a in arms] if d}
+        if not devs or any(not d.startswith(device) for d in devs):
+            fail(f"{name}: ran on {sorted(devs)}")
+        got = scenarios.virtual_time_fields(entry["scenario"], res)
         launched = {k: sk.LAUNCHES[k] - before[k] for k in sk.LAUNCHES}
-        pump_launches(name, launched)
-        log(f"[e2e] {name} {json.dumps(entry['params'])}: wall_s={wall:.3f} "
-            + " | ".join(
-                f"events={a['events']} events_per_sec="
-                f"{a['events_per_sec']:.1f} tick_wall_s="
-                f"{a['tick_wall_s']:.3f} kernel_wall_s="
-                f"{a['kernel_wall_s']:.3f} drain_wall_s="
-                f"{a.get('drain_wall_s', float('nan')):.3f}" for a in arms)
+        n_pieces = entry_pieces(scenarios, entry)
+        if device == "cuda":
+            pump_launches(name, launched, n_pieces)
+            if entry["params"].get("n_islands", 0) > 0 \
+                    and launched["island_has"] <= 0:
+                fail(f"{name}: island_has never launched")
+        log(f"[e2e] {name} {json.dumps(entry['params'])} P={n_pieces}: "
+            f"wall_s={wall:.3f} " + " | ".join(
+                f"events={a.get('events')} "
+                f"tick_wall_s={a['tick_wall_s']:.3f} "
+                f"kernel_wall_s={a['kernel_wall_s']:.3f} "
+                f"batch_ops={a['batch_ops']}"
+                + (f" drain_wall_s={a['drain_wall_s']:.3f}"
+                   if "drain_wall_s" in a else "") for a in arms)
             + f" launches={json.dumps(launched)}")
         log(f"[e2e] {name} result {json.dumps(got)}")
+        log(f"[time] {name} {wall:.1f}s")
         if got != entry["result"]:
             log(f"[e2e] {name} MISMATCH against reference_runs.json: "
                 f"expected {json.dumps(entry['result'])}")
-            cpu = summarize(entry["scenario"],
-                            run(verbose=False, device="cpu",
-                                **entry["params"]))
-            log(f"[e2e] {name} port on the CPU "
-                + ("matches" if cpu == entry["result"] else
-                   f"does not match either: {json.dumps(cpu)}"))
-            fail(f"{name}: card results differ from reference_runs.json")
+            if device == "cuda":
+                cpu = scenarios.virtual_time_fields(
+                    entry["scenario"], run_entry(scenarios, entry, "cpu")[0])
+                log(f"[e2e] {name} port on the CPU "
+                    + ("matches" if cpu == entry["result"] else
+                       f"does not match either: {json.dumps(cpu)}"))
+            fail(f"{name}: {device} results differ from "
+                 "reference_runs.json")
 
 
 # ====================== serve slice: kernel phase ======================= #
@@ -1006,7 +1129,9 @@ def main():
     records = kernel_phase(torch, sk)
 
     sk.reset_launches()
+    t0 = time.perf_counter()
     end_to_end_phase(torch, sk, scenarios)
+    log(f"[time] swarm end-to-end phase {time.perf_counter() - t0:.1f}s")
     launches = dict(sk.LAUNCHES)
     missing = [k for k in SWARM_KERNELS if launches[k] <= 0]
     if missing:

@@ -1,4 +1,6 @@
 from repro_torch.core.agent import Agent, AgentConfig  # noqa: F401
+from repro_torch.core.chaos import (ChaosScenario,  # noqa: F401
+                                     make_chaos_plan)
 from repro_torch.core.faults import (Crash, FaultPlan,  # noqa: F401
                                      LinkFault, Partition)
 from repro_torch.core.messages import AppInfo, Msg  # noqa: F401

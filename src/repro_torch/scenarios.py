@@ -1,27 +1,73 @@
-"""Scenario runs of the batched flash-crowd loop on `repro_torch`.
+"""Scenario runs of the swarm on `repro_torch`.
 
-`scenario_vii` (flash crowd) and `scenario_ix` (topology-aware P4P peer
-selection on a WAN) are the reference's `benchmarks/paper_tables.py`
-functions of the same names, unchanged in behaviour, with `device=` in
-place of `backend=`: the batched hub runs its kernels on that device
-("cuda" by default; "cpu" takes the plain PyTorch versions) and the
-result reports it under "device".  Virtual-time results (`makespan_s`,
-`full_replication_s`, `p99_completion_s`, `cross_isp_bytes`,
-`origin_up_mb`, `events`) are the reference's bit for bit under the same
-`PYTHONHASHSEED`: the protocol iterates sets of node names, so their
-order — and with it the trace — follows the process's string hash seed.
+`scenario_vii` (flash crowd), `scenario_viii` (chaos: loss, duplication,
+jitter, churn and a partition), `scenario_ix` (topology-aware P4P peer
+selection on a WAN) and `scenario_x` (versioned-manifest delta
+distribution) are the reference's `benchmarks/paper_tables.py` functions
+of the same names, unchanged in behaviour, with `device=` in place of
+`backend=`: the batched hub runs its kernels on that device ("cuda" by
+default; "cpu" takes the plain PyTorch versions) and the result reports
+it under "device".  `scenario_viii` also takes `batched=` (the reference
+`ChaosScenario`'s own batched mode; off by default, as there).
+Virtual-time results (`makespan_s`, `full_replication_s`,
+`p99_completion_s`, `cross_isp_bytes`, `origin_up_mb`, `events`, the
+upgrade and scratch makespans and traffic) are the reference's bit for
+bit under the same `PYTHONHASHSEED`: the protocol iterates sets of node
+names, so their order — and with it the trace — follows the process's
+string hash seed.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.core import (Agent, AgentConfig, SimRuntime, TrackerConfig,
-                              TrackerServer, make_prime_app)
+from repro_torch.core import (Agent, AgentConfig, ChaosScenario, SimRuntime,
+                              TrackerConfig, TrackerServer, make_prime_app)
 from repro_torch.core.runtime import LinkModel
 from repro_torch.core.swarm_arrays import SwarmHub
 from repro_torch.core.topology import Topology
 
 H = 3600.0
+
+# The virtual-time fields of each run's result, which the port must
+# reproduce exactly; wall-clock fields (`wall_s`, `tick_wall_s`, ...)
+# never compare.  "chaos" is one `ChaosScenario(...).report()`.
+_FLASH_FIELDS = ("events", "makespan_s", "full_replication_s",
+                 "p99_completion_s", "cross_isp_bytes", "origin_up_mb",
+                 "replicas")
+_CHAOS_FIELDS = ("makespan_s", "origin_up_mb", "events", "dropped_msgs",
+                 "dup_msgs", "crashes", "restarts", "replicas",
+                 "replicated", "done")
+_X_FIELDS = ("v1_makespan_s", "upgrade_makespan_s", "scratch_makespan_s",
+             "v1_traffic_bytes", "upgrade_traffic_bytes",
+             "scratch_traffic_bytes", "reused_pieces", "stale_accepts",
+             "upgraded", "replicated")
+_X_CHAOS_FIELDS = ("converged", "reused_pieces", "stale_have_demoted",
+                   "stale_piece_data", "stale_reqs_refused", "stale_accepts")
+
+
+def virtual_time_fields(scenario: str, res: dict) -> dict:
+    """The fields of `res`, a result of `scenario` ("scenario_vii",
+    "scenario_viii", "scenario_ix", "scenario_x" or "chaos"), that do not
+    depend on the machine."""
+    def pick(d, keys):
+        return {k: d[k] for k in keys}
+
+    if scenario == "scenario_vii":
+        return pick(res, _FLASH_FIELDS)
+    if scenario == "scenario_ix":
+        return {arm: pick(res[arm], _FLASH_FIELDS) for arm in ("naive", "p4p")}
+    if scenario == "scenario_viii":
+        return {"baseline": pick(res["baseline"], _CHAOS_FIELDS),
+                "chaos": pick(res["chaos"], _CHAOS_FIELDS),
+                **pick(res, ("makespan_overhead", "egress_overhead"))}
+    if scenario == "chaos":
+        return pick(res, _CHAOS_FIELDS + ("cross_isp_bytes",))
+    if scenario == "scenario_x":
+        out = pick(res, _X_FIELDS)
+        if "chaos" in res:
+            out["chaos"] = pick(res["chaos"], _X_CHAOS_FIELDS)
+        return out
+    raise ValueError(f"unknown scenario {scenario!r}")
 
 
 def scenario_vii(verbose: bool = True, n_volunteers: int = 200,
@@ -169,6 +215,70 @@ def scenario_vii(verbose: bool = True, n_volunteers: int = 200,
     return res
 
 
+def scenario_viii(verbose: bool = True, n_volunteers: int = 48,
+                  image_mb: float = 32.0, n_pieces: int = 32,
+                  n_parts: Optional[int] = None, m_min: int = 1,
+                  loss: float = 0.10, jitter_s: float = 0.2,
+                  churn: float = 0.30, seed: int = 8,
+                  uplink_mbps: float = 100.0, until_h: float = 4.0,
+                  batched: bool = False, device="cuda") -> dict:
+    """Scenario VIII: chaos — the swarm under the volunteer-computing
+    default operating conditions (lossy consumer links + churn).
+
+    The same N=48 flash crowd is run twice from one seed: once fault-free
+    and once under a `FaultPlan` with 10% message loss, 2% duplication,
+    200ms reorder jitter and 30% volunteer churn (crash + restart as
+    fresh incarnations, scheduled inside the fault-free makespan).  The
+    chaos run must still fully replicate — every surviving volunteer
+    converges to the verified image — and the headline numbers are the
+    *overhead* of surviving the faults: makespan and origin-egress ratios
+    vs the fault-free baseline.  The chaos invariants (convergence,
+    quorum <= m_min+1, availability bookkeeping exact) are asserted, not
+    just measured.
+
+    `batched=True` runs both arms on `ChaosScenario`'s batched path (one
+    `SwarmHub` per arm on `device`); each arm's report then carries the
+    hub's stats (`tick_wall_s`, `kernel_wall_s`, `batch_ops`, ...).
+    """
+    if n_parts is None:
+        n_parts = 2 * n_volunteers
+    common = dict(n_volunteers=n_volunteers, n_pieces=n_pieces,
+                  n_parts=n_parts, m_min=m_min,
+                  image_bytes=int(image_mb * 1e6), real_image=False,
+                  uplink_mbps=uplink_mbps, until_s=until_h * H,
+                  batched=batched, device=device)
+    base = ChaosScenario(seed=seed, loss=0.0, dup=0.0, jitter_s=0.0,
+                         churn=0.0, n_partitions=0, **common).run()
+    base.check_invariants()
+    # churn/partition schedule scaled to the fault-free makespan, so the
+    # chaos run fights faults *during* the distribution, not after it
+    horizon = max(base.makespan_s, 30.0)
+    chaos = ChaosScenario(seed=seed, loss=loss, dup=0.02,
+                          jitter_s=jitter_s, churn=churn, n_partitions=1,
+                          partition_s=0.15 * horizon, horizon_s=horizon,
+                          **common).run()
+    chaos.check_invariants()
+    b, c = base.report(), chaos.report()
+    res = {
+        "baseline": b, "chaos": c, "seed": seed,
+        "makespan_overhead": c["makespan_s"] / max(b["makespan_s"], 1e-9),
+        "egress_overhead": c["origin_up_mb"] / max(b["origin_up_mb"], 1e-9),
+        "replicated": c["replicated"],
+        "invariants_ok": True,          # check_invariants() raised otherwise
+    }
+    if batched:
+        res["device"] = str(chaos.hub.device)
+    if verbose:
+        print(f"[scenarioVIII] N={n_volunteers} img={image_mb:.0f}MB "
+              f"loss={loss:.0%} churn={churn:.0%} seed={seed}: "
+              f"makespan {b['makespan_s']:.0f}s -> {c['makespan_s']:.0f}s "
+              f"(x{res['makespan_overhead']:.2f}) origin_up "
+              f"{b['origin_up_mb']:.0f} -> {c['origin_up_mb']:.0f}MB "
+              f"(x{res['egress_overhead']:.2f}) dropped={c['dropped_msgs']} "
+              f"restarts={c['restarts']} replicated={c['replicated']}")
+    return res
+
+
 def scenario_ix(verbose: bool = True, n_volunteers: int = 500,
                 n_islands: int = 8, image_mb: float = 32.0,
                 n_pieces: int = 64, n_parts: Optional[int] = None,
@@ -300,3 +410,331 @@ def scenario_ix(verbose: bool = True, n_volunteers: int = 500,
               f"(x{res['makespan_ratio']:.3f}) "
               f"replicated={res['replicated']}")
     return res
+
+
+def scenario_x(verbose: bool = True, n_volunteers: int = 200,
+               image_mb: float = 64.0, n_pieces: int = 128,
+               delta_frac: float = 0.05, uplink_mbps: float = 100.0,
+               until_h: float = 8.0, tick_s: float = 0.5, seed: int = 10,
+               batched: bool = True, device="cuda",
+               include_chaos: bool = True, chaos_volunteers: int = 48,
+               chaos_churn: float = 0.30, chaos_loss: float = 0.05,
+               chaos_image_mb: float = 4.0, chaos_pieces: int = 32) -> dict:
+    """Scenario X: versioned-manifest delta distribution (image upgrades).
+
+    A swarm of N volunteers holds revision v1 of a 64 MB image; the host
+    publishes v2 with `delta_frac` of the pieces changed (a versioned
+    `PieceManifest` chained by `prev_manifest_hash`).  Volunteers carry
+    over their unchanged verified pieces (`PieceInventory.seed_from`) and
+    fetch only the delta, against a *scratch* baseline that redistributes
+    the full image to the same swarm under a fresh app id.  Headline
+    metrics: **upgrade_traffic_bytes** (total bytes on the wire, every
+    sender counted) and **upgrade_makespan_s** — target >=10x less than
+    scratch on both.
+
+    Chaos overlay: a smaller swarm with REAL image bytes (the reuse rule
+    re-hashes every carried-over piece) upgrades while `chaos_churn` of
+    the volunteers crash around the publish — half resume with stale v1
+    memory (the mixed-version announce case), half restart as fresh
+    incarnations off the on-disk piece cache.  Asserted, not measured: no
+    engine ever accepts a version-mismatched piece (`stale_accepts == 0`)
+    and every survivor converges byte-identical to v2.
+    """
+    import random as _random
+    import time as _time
+
+    from repro_torch.core.workunit import Application, PieceManifest
+
+    image_bytes = int(image_mb * 1e6)
+    piece_bytes = image_bytes // n_pieces
+    n_changed = max(1, int(round(delta_frac * n_pieces)))
+    app_id = "appx"
+    vol_ids = [f"V{i:03d}" for i in range(n_volunteers)]
+    link_Bps = uplink_mbps * 1e6 / 8
+
+    hub = SwarmHub(device=device) if batched else None
+    rt = SimRuntime(link=LinkModel(uplink_Bps=link_Bps,
+                                   downlink_Bps=link_Bps))
+    if hub is not None:
+        rt.crash_hooks.append(hub.node_gone)
+    rt.add_node(TrackerServer(config=TrackerConfig(ping_interval_s=5.0)))
+    # upload_slots=8 / rechoke=15s: enough parallel unchoke capacity that
+    # the 6-piece delta fetch isn't serialized behind the grant scheduler,
+    # and rechoke churn doesn't reshuffle holders mid-delta.  Shared by
+    # BOTH the upgrade arm and the scratch baseline so the comparison
+    # stays apples-to-apples.
+    cfg = dict(work_timeout_s=600.0, status_interval_s=5.0,
+               rechoke_interval_s=15.0, replicate_completed=True,
+               max_replica_seeders=8, upload_slots=8)
+    origin = Agent("origin", config=AgentConfig(**cfg), hub=hub)
+    rt.add_node(origin)
+    app = Application(app_id, "origin", app_bytes=image_bytes, parts=[],
+                      swarm=True, piece_bytes=piece_bytes)
+    origin.host_app(app)
+    agents = []
+    for nid in vol_ids:
+        a = Agent(nid, config=AgentConfig(**cfg), hub=hub)
+        rt.add_node(a)
+        agents.append(a)
+
+    def _run(stop) -> None:
+        if hub is not None:
+            rt.run_batched(until=until_h * H, stop_when=stop,
+                           tick_s=tick_s, on_tick=hub.tick)
+        else:
+            rt.run(until=until_h * H, stop_when=stop)
+
+    def _tx() -> float:
+        return float(sum(rt.tx_bytes.values()))
+
+    t0 = _time.perf_counter()
+    # phase 1 — v1 flash crowd: the pre-existing swarm state every
+    # upgrade starts from
+    m1 = app.ensure_manifest()
+    not_done = list(agents)
+
+    def v1_done():
+        not_done[:] = [a for a in not_done if app_id not in a.images]
+        return not not_done
+
+    _run(v1_done)
+    v1_makespan = rt.now()
+    v1_traffic = _tx()
+
+    # phase 2 — the host publishes v2: delta_frac of the pieces changed,
+    # manifest chained to v1; volunteers reuse the rest
+    rng = _random.Random(seed)
+    changed = set(rng.sample(range(n_pieces), n_changed))
+    m2 = PieceManifest.synthetic(app_id, image_bytes, piece_bytes,
+                                 version=2, prev=m1, changed=changed)
+    t_pub, b_pub = rt.now(), _tx()
+    assert origin.publish_update(app_id, m2), "v2 must supersede v1"
+    not_up = list(agents)
+
+    def upgraded():
+        not_up[:] = [a for a in not_up
+                     if a.images.get(app_id) != m2.manifest_hash]
+        return not not_up
+
+    _run(upgraded)
+    upgrade_makespan = rt.now() - t_pub
+    upgrade_traffic = _tx() - b_pub
+    engines = [a.px for a in agents] + [origin.px]
+    reused = sum(px.reused_pieces for px in engines)
+    stale_accepts = sum(px.stale_accepts for px in engines)
+    on_v2 = sum(1 for a in agents
+                if a.images.get(app_id) == m2.manifest_hash)
+
+    # phase 3 — scratch baseline: the same swarm pulls the same 64 MB as
+    # a brand-new app (what redistribution without versioned manifests
+    # costs)
+    scratch_id = "appx-scratch"
+    scratch = Application(scratch_id, "origin", app_bytes=image_bytes,
+                          parts=[], swarm=True, piece_bytes=piece_bytes)
+    t_s, b_s = rt.now(), _tx()
+    origin.host_app(scratch)
+    not_s = list(agents)
+
+    def scratch_done():
+        not_s[:] = [a for a in not_s if scratch_id not in a.images]
+        return not not_s
+
+    _run(scratch_done)
+    scratch_makespan = rt.now() - t_s
+    scratch_traffic = _tx() - b_s
+    wall_s = max(_time.perf_counter() - t0, 1e-9)
+
+    res = {
+        "n_volunteers": n_volunteers,
+        "image_mb": image_mb,
+        "n_pieces": n_pieces,
+        "n_changed": n_changed,
+        "delta_frac": delta_frac,
+        "seed": seed,
+        "batched": batched,
+        "v1_makespan_s": v1_makespan,
+        "v1_traffic_bytes": v1_traffic,
+        "upgrade_makespan_s": upgrade_makespan,
+        "upgrade_traffic_bytes": upgrade_traffic,
+        "scratch_makespan_s": scratch_makespan,
+        "scratch_traffic_bytes": scratch_traffic,
+        "traffic_reduction": scratch_traffic / max(upgrade_traffic, 1.0),
+        "makespan_speedup": scratch_makespan / max(upgrade_makespan, 1e-9),
+        "reused_pieces": reused,
+        "upgraded": on_v2 == n_volunteers,
+        "replicated": (on_v2 == n_volunteers
+                       and len(not_done) == 0 and len(not_s) == 0),
+        "no_stale": stale_accepts == 0,
+        "stale_accepts": stale_accepts,
+        "wall_s": wall_s,
+    }
+    if hub is not None:
+        res["device"] = str(hub.device)
+        res.update(hub.stats())
+    if include_chaos:
+        res["chaos"] = _scenario_x_chaos(
+            n_volunteers=chaos_volunteers, image_mb=chaos_image_mb,
+            n_pieces=chaos_pieces, delta_frac=delta_frac,
+            churn=chaos_churn, loss=chaos_loss, seed=seed,
+            uplink_mbps=uplink_mbps, until_h=until_h)
+        res["chaos_ready"] = res["chaos"]["converged"]
+        res["no_stale"] = res["no_stale"] and res["chaos"]["no_stale"]
+    if verbose:
+        print(f"[scenarioX] N={n_volunteers} img={image_mb:.0f}MB "
+              f"delta={n_changed}/{n_pieces} pieces: upgrade "
+              f"{upgrade_traffic / 1e6:.0f}MB/{upgrade_makespan:.0f}s vs "
+              f"scratch {scratch_traffic / 1e6:.0f}MB/"
+              f"{scratch_makespan:.0f}s "
+              f"(/{res['traffic_reduction']:.1f} traffic, "
+              f"x{res['makespan_speedup']:.1f} makespan) "
+              f"reused={reused} stale_accepts={stale_accepts}")
+        if include_chaos:
+            c = res["chaos"]
+            print(f"[scenarioX] chaos churn={chaos_churn:.0%}: "
+                  f"converged={c['converged']} reused={c['reused_pieces']} "
+                  f"demoted={c['stale_have_demoted']} "
+                  f"stale_data={c['stale_piece_data']} "
+                  f"refused={c['stale_reqs_refused']} "
+                  f"stale_accepts={c['stale_accepts']}")
+    return res
+
+
+def _scenario_x_chaos(n_volunteers: int = 48, image_mb: float = 4.0,
+                      n_pieces: int = 32, delta_frac: float = 0.05,
+                      churn: float = 0.30, loss: float = 0.05,
+                      seed: int = 10, uplink_mbps: float = 100.0,
+                      until_h: float = 8.0) -> dict:
+    """Scenario X chaos overlay: upgrade during churn, REAL image bytes.
+
+    Run scalar (per-message) so every version gate fires on the wire
+    path.  Crash `churn` of the volunteers around the publish: half
+    resume with their v1 state intact (they re-announce stale v1 masks
+    the upgraded swarm must demote), half restart as fresh incarnations
+    whose only v1 remnant is the on-disk piece cache (reused only after
+    the content re-hash).  Asserts convergence to byte-identical v2 and
+    the mixed-version tripwire `stale_accepts == 0`.
+    """
+    import random as _random
+    import shutil
+    import tempfile
+
+    from repro_torch.core.faults import FaultPlan, LinkFault
+    from repro_torch.core.workunit import Application, PieceManifest
+
+    image_bytes = int(image_mb * 1e6)
+    piece_bytes = image_bytes // n_pieces
+    n_changed = max(1, int(round(delta_frac * n_pieces)))
+    app_id = "appx-chaos"
+    vol_ids = [f"C{i:02d}" for i in range(n_volunteers)]
+    link_Bps = uplink_mbps * 1e6 / 8
+    rng = _random.Random(seed + 1)
+    root = tempfile.mkdtemp(prefix="scenario_x_chaos_")
+    try:
+        rt = SimRuntime(
+            link=LinkModel(uplink_Bps=link_Bps, downlink_Bps=link_Bps),
+            faults=FaultPlan(seed=seed + 1,
+                             link=LinkFault(drop_p=loss, dup_p=0.02,
+                                            jitter_s=0.2)))
+        rt.add_node(TrackerServer(config=TrackerConfig(ping_interval_s=2.0)))
+        cfg = dict(work_timeout_s=10.0, status_interval_s=1.0,
+                   rechoke_interval_s=5.0, piece_timeout_s=5.0,
+                   reregister_s=15.0, gossip_interval_s=5.0,
+                   replicate_completed=True, root_dir=root)
+        engines = []
+
+        def mk(nid: str) -> Agent:
+            a = Agent(nid, config=AgentConfig(**cfg))
+            engines.append(a.px)
+            return a
+
+        origin = mk("origin")
+        rt.add_node(origin)
+        image1 = bytes((i * 89 + 17) % 256 for i in range(image_bytes))
+        app = Application(app_id, "origin", app_bytes=image_bytes,
+                          parts=[], swarm=True, piece_bytes=piece_bytes,
+                          image=image1)
+        origin.host_app(app)
+        agents = {}
+        for nid in vol_ids:
+            agents[nid] = mk(nid)
+            rt.add_node(agents[nid])
+        m1 = app.ensure_manifest()
+
+        not_done = list(vol_ids)
+
+        def v1_done():
+            not_done[:] = [n for n in not_done
+                           if app_id not in rt.nodes[n].images]
+            return not not_done
+
+        rt.run(until=until_h * H, stop_when=v1_done)
+        assert not not_done, "chaos overlay: v1 never fully replicated"
+
+        # v2 image: flip one byte in each changed piece
+        changed = set(rng.sample(range(n_pieces), n_changed))
+        image2 = bytearray(image1)
+        for pid in changed:
+            image2[pid * piece_bytes] ^= 0xFF
+        image2 = bytes(image2)
+        m2 = PieceManifest.from_bytes(app_id, image2, piece_bytes,
+                                      version=2, prev=m1)
+        assert m2.delta(m1) == changed, "delta must match the edit set"
+
+        # churn around the publish: crash before it (so the victims miss
+        # the MANIFEST_UPDATE), restart shortly after.  Suspend/resume
+        # victims come back holding complete v1 state in memory — the
+        # stale-mask announce case; fresh-incarnation victims come back
+        # empty except the on-disk v1 piece cache.
+        t_pub = rt.now() + 5.0
+        victims = rng.sample(vol_ids, int(round(churn * n_volunteers)))
+        for k, nid in enumerate(victims):
+            if k % 2 == 0:
+                rt.restart_factory[nid] = lambda n=nid: mk(n)
+            else:
+                rt.restart_factory.pop(nid, None)   # suspend/resume
+            rt._at(rng.uniform(rt.now(), t_pub), rt.crash, (nid,))
+            rt._at(t_pub + rng.uniform(1.0, 10.0), rt.restart, (nid,))
+        rt.run(until=t_pub, stop_when=lambda: False)
+        assert origin.publish_update(app_id, m2, image=image2)
+
+        def converged():
+            for nid in vol_ids:
+                node = rt.nodes.get(nid)
+                if node is None or \
+                        node.images.get(app_id) != m2.manifest_hash:
+                    return False
+            return True
+
+        rt.run(until=until_h * H, stop_when=converged)
+        ok = converged()
+        byte_identical = ok and all(
+            rt.nodes[nid].px.assembled_image(app_id) == image2
+            for nid in vol_ids)
+        stale_accepts = sum(px.stale_accepts for px in engines)
+        assert stale_accepts == 0, \
+            "mixed-version tripwire fired: a stale piece was accepted"
+        assert byte_identical, \
+            "chaos overlay: a survivor did not converge to v2 bytes"
+        return {
+            "n_volunteers": n_volunteers,
+            "image_mb": image_mb,
+            "churn": churn,
+            "loss": loss,
+            "converged": ok,
+            "byte_identical": byte_identical,
+            "no_stale": stale_accepts == 0,
+            "stale_accepts": stale_accepts,
+            "reused_pieces": sum(px.reused_pieces for px in engines),
+            "stale_have_demoted": sum(px.stale_have_demoted
+                                      for px in engines),
+            "stale_piece_data": sum(px.stale_piece_data
+                                    for px in engines),
+            "stale_reqs_refused": sum(px.stale_reqs_refused
+                                      for px in engines),
+            "upgrades": sum(px.upgrades for px in engines),
+            "crashes": rt.crash_count,
+            "restarts": rt.restart_count,
+            "makespan_s": rt.now(),
+        }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)

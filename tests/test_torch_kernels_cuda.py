@@ -3,7 +3,8 @@ versions on the same CUDA tensors, over randomized shapes beyond the main
 path's (odd piece counts, empty rows, every route of the fused orders and
 of the dense and ragged matcher, with the route read from `LAUNCHES`),
 plus the torch-op functions on CUDA against the same ops on the
-CPU, and a small batched flash crowd on the card against the CPU path.
+CPU, and a small batched flash crowd, chaos runs and an image upgrade
+on the card against the CPU path.
 
 These tests need an NVIDIA card and nvcc; they skip elsewhere.  Run them
 on the card with
@@ -130,14 +131,14 @@ def _ragged_from(rs, args, C):
             budgets, have, full)
 
 
-@pytest.mark.parametrize("P", [None, 1, 7, 33, 48, 64, 65, 100])
+@pytest.mark.parametrize("P", [None, 1, 7, 33, 48, 64, 65, 100, 128])
 @pytest.mark.parametrize("C", [1, 7, 8, 9, 31, 33, 200, 512, 2048, 13_000])
 def test_match_requests_kernel_matches_plain(sk, C, P):
     """Dense and ragged launches over every route: 1..16 slots a lane on
     the register route (P <= 64, degrees to 512; P = 7, 33, 48 take the
     have rows' byte loop and partial 16-byte loads) and the wide route (P >
-    64 or a degree above 512), read from LAUNCHES.  P None draws three
-    piece counts in 1..100."""
+    64 or a degree above 512; P = 128 is Scenario X's width), read from
+    LAUNCHES.  P None draws three piece counts in 1..100."""
     rs = np.random.default_rng(C * 1000 + (P or 0))
     for _ in range(3):
         R = int(rs.integers(1, 300))
@@ -217,6 +218,44 @@ def test_small_flash_crowd_on_cuda_matches_cpu(sk):
     for arm in ("naive", "p4p"):
         assert {k: a[arm][k] for k in keys + ("cross_isp_bytes",)} == \
             {k: b[arm][k] for k in keys + ("cross_isp_bytes",)}
+
+
+def test_small_chaos_and_upgrade_on_cuda_match_cpu(sk):
+    """Churn, loss and a partition (Scenario VIII batched, and a chaos run
+    on islands with an island cut off) and an upgrade at 80 pieces
+    (Scenario X: the orders' sort route, the matcher's wide route) give
+    the CPU path's results on the card, with the invariants (device
+    planes included) checked on the card."""
+    from repro_torch.core.chaos import ChaosScenario
+    from repro_torch.scenarios import (scenario_viii, scenario_x,
+                                       virtual_time_fields)
+    runs = [("scenario_viii", scenario_viii,
+             dict(n_volunteers=24, batched=True)),
+            ("scenario_x", scenario_x,
+             dict(n_volunteers=24, image_mb=8.0, n_pieces=80,
+                  include_chaos=False))]
+    for name, fn, params in runs:
+        n0 = dict(sk.LAUNCHES)
+        a = fn(verbose=False, device="cuda", **params)
+        b = fn(verbose=False, device="cpu", **params)
+        assert a["device"].startswith("cuda")
+        assert virtual_time_fields(name, a) == virtual_time_fields(name, b)
+        n = {k: sk.LAUNCHES[k] - n0[k] for k in n0}
+        if name == "scenario_x":
+            assert n["rarest_keys.sort"] == n["rarest_keys"] > 0
+            assert n["match_requests.wide"] == n["match_requests"] > 0
+        else:
+            assert n["rarest_keys.warp"] == n["rarest_keys"] > 0
+    params = dict(seed=3, n_volunteers=8, n_pieces=12, n_parts=16,
+                  image_bytes=96_000, real_image=False, batched=True,
+                  n_islands=3, island_partitions=True)
+    n0 = sk.LAUNCHES["island_has"]
+    a = ChaosScenario(device="cuda", **params).run()
+    a.check_invariants()
+    b = ChaosScenario(device="cpu", **params).run()
+    assert sk.LAUNCHES["island_has"] > n0
+    assert virtual_time_fields("chaos", a.report()) == \
+        virtual_time_fields("chaos", b.report())
 
 
 # ================= the model stack's kernels: flash and SSD ============== #
