@@ -11,7 +11,12 @@
    order in one launch) against the plain keys and a stable argsort,
    beside the keys kernel with `torch.sort` that it replaced; the sort
    route that 128 pieces take (keys kernel + `torch.sort`, R=200) beside
-   `torch.sort` alone; `island_has`; the dense `match_requests` (P=64,
+   `torch.sort` alone; `island_has` (v1, the reduction alone) and
+   `island_cost_rows` (v2: the hub's whole P4P cost plane, from its
+   device planes to the per-row cost rows, in one launch) at N = R = 500
+   and 2000 and with dead rows, full rows and an empty island, timed in
+   turns against the v1 composition (plane ops, `island_has`,
+   `min_island_cost`, gathers); the dense `match_requests` (P=64,
    C = 8..512; P=128, C = 8/64/200 on the wide route) and
    `match_requests_ragged` on pump-shaped CSR rows (degrees 1-64, and
    1-600 with the wide route); then drives on the card, each against
@@ -30,12 +35,15 @@
    checks that every swarm kernel launched on this path, that each pump
    launched the piece orders once on its width's route (fused warp
    kernel to 64 pieces, keys + `torch.sort` and only the matcher's wide
-   route above) and the matcher at most once, and prints each run's
-   wall, tick and kernel seconds and its launches per route and per
-   pump;
+   route above), the matcher at most once, and `island_cost_rows`
+   exactly once for each pump that orders pieces under a topology (and
+   the v1 `island_has` never), and prints each run's wall, tick and
+   kernel seconds, its kernel calls and ms per call as issued, and its
+   launches per route and per pump;
 3. serve slice: holds `flash_fwd` and `ssd_scan` against their plain
    versions (the reference's kernel-test cases and the serve path's
-   shapes: f32 on the CUDA-core kernels, bf16 on the tensor-core ones),
+   shapes: f32 on the CUDA-core kernels, bf16 on the tensor-core ones,
+   and an f16 scan whose M passes f16's range, on the CUDA cores),
    times each at the serve shape against its CUDA-core kernel in turns
    (v1, v2, v2, v1) and flash beside `scaled_dot_product_attention`; runs
    zamba2-7b at full width cut to 7 layers in f32 against
@@ -55,6 +63,7 @@ Any failure exits non-zero without the last line.  The protocol iterates
 sets of node names, so the script re-executes itself under
 PYTHONHASHSEED=0, the seed the expected values were taken under.
 """
+import functools
 import json
 import os
 import statistics
@@ -74,6 +83,9 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT_OPS_PER_S = 67e12           # non-tensor-core rate (the fp32 table row)
 F32_OPS_PER_S = 67e12           # fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12         # bf16 / fp16 tensor cores, dense
+# the kernel each row of the line reports (island_has: v2, the fused
+# cost rows; its v1_ms is the composition around the v1 kernel)
+KERNEL_OF_ROW = {"island_has": "island_cost_rows"}
 SOURCES = {
     "rarest_keys": "src/repro_torch/csrc/swarm_kernels.cu",
     "island_has": "src/repro_torch/csrc/swarm_kernels.cu",
@@ -82,8 +94,9 @@ SOURCES = {
     "ssd_scan": "src/repro_torch/csrc/ssd_scan_mma.cu",
 }
 # the route each kernel of the line ran on its main path: bf16 serving
-# takes the tensor-core kernels
-ROUTES = {"rarest_keys": "cuda", "island_has": "cuda",
+# takes the tensor-core kernels, the P4P cost rows one thread-block
+# cluster
+ROUTES = {"rarest_keys": "cuda", "island_has": "cuda-cluster",
           "match_requests": "cuda", "flash_fwd": "cuda-mma",
           "ssd_scan": "cuda-mma"}
 REPLACES = {
@@ -283,21 +296,83 @@ def kernel_phase(torch, sk):
                                          missing=missing128),
           library=lambda: torch.sort(keys128, dim=1, stable=True).indices)
 
-    # ---- island_has ----------------------------------------------------- #
+    # ---- island_has: v1, the reduction alone ---------------------------- #
     for N, K in ((500, 8), (2000, 8)):
         have = up((rs.random((N, P)) < 0.05).astype(np.uint8))
         isl = rs.integers(0, K, N)
         member = np.zeros((K, N), dtype=np.uint8)
         member[isl, np.arange(N)] = 1
         member = up(member)
-        got = sk.island_has(have, member)
-        want = sk.island_has_plain(have, member)
-        hf, mf = have.float(), member.float()
-        check("island_has", f"N={N} K={K} P={P}", got, want,
-              nbytes(have, member, got), K * N * P * 2,
-              lambda h=have, m=member: sk.island_has(h, m),
-              lambda h=have, m=member: sk.island_has_plain(h, m),
+        torch.cuda.synchronize()
+        if not torch.equal(sk.island_has(have, member),
+                           sk.island_has_plain(have, member)):
+            fail(f"island_has (v1) N={N} K={K} disagrees with its plain "
+                 "version")
+        log(f"[kernel] island_has v1 N={N} K={K} P={P}: exact")
+
+    # ---- island_has: v2 fuses the hub's P4P cost plane ----------------- #
+    # (from a generator of its own, so the cases after it keep their
+    # inputs).  The hub's planes at its capacity (the next power of two),
+    # rows [0, N) reduced, R = N leecher rows in any order.  The third
+    # case: 30% dead rows, 20% full rows, island 7 empty.
+    rs_isl = np.random.default_rng(2221)
+    K = 8
+    for N, p_alive, p_full, k_used in ((500, 0.97, 0.02, K),
+                                       (2000, 0.97, 0.02, K),
+                                       (500, 0.7, 0.2, K - 1)):
+        cap = 1 << (N - 1).bit_length()
+        have = up((rs_isl.random((cap, P)) < 0.05).astype(np.uint8))
+        full = up((rs_isl.random(cap) < p_full).astype(np.uint8))
+        alive = up((rs_isl.random(cap) < p_alive).astype(np.uint8))
+        island = up(rs_isl.integers(0, k_used, cap).astype(np.int64))
+        rows = up(rs_isl.permutation(N).astype(np.int64))
+        cost_k = rs_isl.integers(1, 16, (K, K))
+        np.fill_diagonal(cost_k, 0)
+        cost_k = up(cost_k.astype(np.int64))
+        args = (have, full, alive, island, N, rows, cost_k)
+
+        def v2(a=args):
+            return sk.island_cost_rows(*a)
+
+        one = torch.ones((), dtype=torch.uint8, device=dev)
+
+        def v1(a=args, N=N, graph=False):
+            # the composition the hub ran before v2, ~11 launches; in a
+            # CUDA graph the member matrix's 1 comes from the card (a host
+            # scalar's copy cannot be captured)
+            h, f, al, isl, _, r, c = a
+            plane = (h[:N] | f[:N, None]) & al[:N, None]
+            member = torch.zeros((K, N), dtype=torch.uint8, device=dev)
+            member[isl[:N], torch.arange(N, device=dev)] = one if graph \
+                else 1
+            return sk.min_island_cost(sk.island_has(plane, member),
+                                      c)[isl[r]]
+
+        v1_graph = functools.partial(v1, graph=True)
+
+        plane = (have[:N] | full[:N, None]) & alive[:N, None]
+        member = torch.zeros((K, N), dtype=torch.uint8, device=dev)
+        member[island[:N], torch.arange(N, device=dev)] = 1
+        got, want = v2(), sk.island_cost_rows_plain(*args)
+        if not (torch.equal(v1(), want) and torch.equal(v1_graph(), want)):
+            fail(f"island_has v1 composition N={N} disagrees")
+        case = (f"island_cost_rows N={N} K={K} P={P} R={N}"
+                + ("" if k_used == K else " 30% dead, 20% full, an empty "
+                   "island"))
+        mf, hf = member.float(), plane.float()
+        check("island_has", case, got, want,
+              nbytes(have[:N], full[:N], alive[:N], island[:N], rows,
+                     cost_k, got),
+              N * P * 2 + K * K * P + N * P, v2,
+              lambda a=args: sk.island_cost_rows_plain(*a),
               library=lambda h=hf, m=mf: (m @ h) > 0)
+        turns = [device_ms(f) for f in (v1_graph, v2, v2, v1_graph)]
+        v1_call = call_ms(v1)
+        rec = records["island_has"][-1]
+        rec.update(v1_ms=(turns[0] + turns[3]) / 2, v1_call_ms=v1_call)
+        log(f"[kernel] island_has {case}: turns (v1 composition, v2, v2, "
+            f"v1) {' '.join(f'{t:.5f}' for t in turns)} ms; one call as "
+            f"issued: v2 {rec['call_ms']:.5f}, v1 {v1_call:.5f} ms")
 
     # ---- match_requests: dense, then ragged (CSR) rows ----------------- #
     N = 2000
@@ -396,7 +471,7 @@ def kernel_phase(torch, sk):
 
 
 # ======================== end-to-end phase ============================== #
-SWARM_KERNELS = ("rarest_keys", "island_has", "match_requests")
+SWARM_KERNELS = ("rarest_keys", "island_cost_rows", "match_requests")
 
 
 def pump_launches(what, launched, n_pieces=None):
@@ -423,9 +498,68 @@ def pump_launches(what, launched, n_pieces=None):
     if launched["match_requests"] > pumps:
         fail(f"{what}: {launched['match_requests']} matcher launches over "
              f"{pumps} pumps")
+    if launched["island_has"] != 0:
+        fail(f"{what}: the hub launched the v1 island_has "
+             f"{launched['island_has']} times")
     log(f"[e2e] {what} launches by route {json.dumps(launched)}; per pump: "
         f"matcher {launched['match_requests'] / max(pumps, 1):.3f}, "
-        f"island_has {launched['island_has'] / max(pumps, 1):.3f}")
+        f"island_cost_rows {launched['island_cost_rows'] / max(pumps, 1):.3f}")
+
+
+# the pump's timed calls: piece orders and the matcher
+PUMP_CALLS = ("_orders", "_match_call")
+
+
+class HubCalls:
+    """Counts, for each hub in the order the run made them, its timed
+    kernel calls (`SwarmHub._kernel`, what `kernel_wall_s` adds up), the
+    pump's share of them (piece orders and matcher, the calls PR 15's
+    ms-per-call counted), and its pumps that order pieces under a
+    topology (each must launch `island_cost_rows` exactly once), by
+    wrapping the two methods while the run lasts."""
+
+    def __init__(self):
+        self.calls = {}
+        self.cost_pumps = {}
+
+    @property
+    def n_cost_pumps(self):
+        return sum(self.cost_pumps.values())
+
+    def __enter__(self):
+        from repro_torch.core.swarm_arrays import SwarmHub
+        self.saved = SwarmHub._orders, SwarmHub._kernel
+        orders, kernel = self.saved
+
+        # keyed by the hub itself (held until the run ends), so a hub
+        # freed after its arm cannot lend its id to the next one
+        @functools.wraps(orders)
+        def counted_orders(hub, st, rows, missing):
+            self.cost_pumps.setdefault(hub, 0)
+            if hub.cost_matrix is not None and len(rows) > 0:
+                self.cost_pumps[hub] += 1
+            return orders(hub, st, rows, missing)
+
+        def counted_kernel(hub, fn, *args, **kw):
+            n = self.calls.setdefault(hub, [0, 0])
+            n[0] += 1
+            n[1] += getattr(fn, "__name__", "") in PUMP_CALLS
+            return kernel(hub, fn, *args, **kw)
+
+        SwarmHub._orders, SwarmHub._kernel = counted_orders, counted_kernel
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.swarm_arrays import SwarmHub
+        SwarmHub._orders, SwarmHub._kernel = self.saved
+
+    def per_arm(self, arms):
+        """(kernel calls, pump calls, P4P pumps) of each arm, or None
+        where the run made another number of hubs than it has arms."""
+        if len(self.calls) != len(arms):
+            return [None] * len(arms)
+        return [(n[0], n[1], self.cost_pumps.get(h, 0))
+                for h, n in self.calls.items()]
 
 
 def run_entry(scenarios, entry, device):
@@ -471,7 +605,8 @@ def end_to_end_phase(torch, sk, scenarios, names=CHIP_RUNS, device="cuda"):
         entry = golden["runs"][name]
         before = dict(sk.LAUNCHES)
         t0 = time.perf_counter()
-        res, arms = run_entry(scenarios, entry, device)
+        with HubCalls() as hub_calls:
+            res, arms = run_entry(scenarios, entry, device)
         if device == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -490,11 +625,24 @@ def end_to_end_phase(torch, sk, scenarios, names=CHIP_RUNS, device="cuda"):
         got = scenarios.virtual_time_fields(entry["scenario"], res)
         launched = {k: sk.LAUNCHES[k] - before[k] for k in sk.LAUNCHES}
         n_pieces = entry_pieces(scenarios, entry)
+        n_cost = hub_calls.n_cost_pumps
+        if entry["params"].get("n_islands", 0) > 0 and n_cost <= 0:
+            fail(f"{name}: no pump ordered pieces under the topology")
         if device == "cuda":
             pump_launches(name, launched, n_pieces)
-            if entry["params"].get("n_islands", 0) > 0 \
-                    and launched["island_has"] <= 0:
-                fail(f"{name}: island_has never launched")
+            if launched["island_cost_rows"] != n_cost:
+                fail(f"{name}: {launched['island_cost_rows']} "
+                     f"island_cost_rows launches over {n_cost} P4P pumps")
+
+        def calls(a, counts):
+            if counts is None:
+                return ""
+            ms = a["kernel_wall_s"] * 1e3
+            return (f" kernel_calls={counts[0]} ms_per_call="
+                    f"{ms / max(counts[0], 1):.4f} pump_calls={counts[1]} "
+                    f"ms_per_pump_call={ms / max(counts[1], 1):.4f} "
+                    f"P4P_pumps={counts[2]}")
+
         log(f"[e2e] {name} {json.dumps(entry['params'])} P={n_pieces}: "
             f"wall_s={wall:.3f} " + " | ".join(
                 f"events={a.get('events')} "
@@ -502,7 +650,8 @@ def end_to_end_phase(torch, sk, scenarios, names=CHIP_RUNS, device="cuda"):
                 f"kernel_wall_s={a['kernel_wall_s']:.3f} "
                 f"batch_ops={a['batch_ops']}"
                 + (f" drain_wall_s={a['drain_wall_s']:.3f}"
-                   if "drain_wall_s" in a else "") for a in arms)
+                   if "drain_wall_s" in a else "") + calls(a, c)
+                for a, c in zip(arms, hub_calls.per_arm(arms)))
             + f" launches={json.dumps(launched)}")
         log(f"[e2e] {name} result {json.dumps(got)}")
         log(f"[time] {name} {wall:.1f}s")
@@ -640,6 +789,27 @@ def model_kernel_phase(torch):
         case = f"{(B, S, H, P, G, N, chunk)} f32"
         check("ssd_scan", case, y, wy, 1e-3, "y")
         check("ssd_scan", case, fin, wfin, 1e-3, "state")
+    # f16 whose M = C B^T exp(segsum) dt passes f16's 65504 inside a chunk
+    # while y and the state fit: f16 takes the CUDA-core kernel, M in f32
+    rs16 = np.random.default_rng(65504)
+    B, S, H, P, N, chunk = 1, 200, 2, 64, 64, 64
+
+    def f32(a):
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+
+    args = (f32(rs16.standard_normal((B, S, H, P)) * 1e-3).half(),
+            f32(1.0 + 0.1 * rs16.random((B, S, H))),
+            f32(np.full(H, -0.01)),
+            f32(40 + rs16.random((B, S, 1, N))).half(),
+            f32(40 + rs16.random((B, S, 1, N))).half())
+    n0 = dict(ssk.LAUNCHES)
+    y, fin = ssk.ssd_scan(*args, chunk=chunk)
+    if ssk.LAUNCHES["ssd_scan.mma"] != n0["ssd_scan.mma"]:
+        fail("ssd_scan took the tensor-core route for f16")
+    wy, wfin = ssk.ssd_scan_plain(*args, chunk=chunk)
+    case = f"{(B, S, H, P, 1, N, chunk)} f16, |M| > 65504"
+    check("ssd_scan", case, y, wy, 1e-2, "y", relative=True)
+    check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
     B, S, H, P, G, N, chunk = 4, 2048, 112, 64, 1, 64, 256
     args = ssd_inputs(B, S, H, P, G, N, torch.bfloat16)
     y, fin = ssk.ssd_scan(*args, chunk=chunk)
@@ -1158,16 +1328,18 @@ def main():
     for name in ("rarest_keys", "island_has", "match_requests", "flash_fwd",
                  "ssd_scan"):
         rec = [r for r in records[name] if "ms" in r][0]
+        kernel = KERNEL_OF_ROW.get(name, name)
         kernels.append({
             "name": name, "route": "cuda", "kernel_route": ROUTES[name],
-            "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "kernel": kernel, "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[kernel],
             "max_abs_err": max(r["max_abs_err"] for r in records[name]),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "v1_ms": rec.get("v1_ms"),
             "route_launches": {k: v for k, v in launches.items()
-                               if k.startswith(name + ".")}})
+                               if k.startswith(name + ".")
+                               or (k == name and k != kernel)}})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

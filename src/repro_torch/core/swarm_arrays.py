@@ -110,9 +110,9 @@ import torch
 
 from repro_torch.core.swarm_kernels import (KEY_INF32, choke_order,
                                             cost_orders, holder_topk,
-                                            island_has,
+                                            island_cost_rows,
                                             match_requests_ragged,
-                                            min_island_cost, rarest_orders)
+                                            rarest_orders)
 
 _DEVICE_TYPES = ("cuda", "cpu")
 
@@ -1123,19 +1123,13 @@ class SwarmHub:
     def _piece_cost(self, st: SwarmState,
                     rows: torch.Tensor) -> torch.Tensor:
         """(len(rows), P) int64 cheapest-holder cost plane rows for the
-        given leecher rows, on the device: the `island_has` kernel reduces
-        the alive have plane ``(have | full) & alive``, built from the
-        device planes, to island-level availability, `min_island_cost`
-        derives the per-source-island cost plane, and each leecher reads
-        its own island's row."""
-        n = st.n
-        k = self.topology.n_islands
-        have = (st.have_d[:n] | st.full_d[:n, None]) & st.alive_d[:n, None]
-        member = torch.zeros((k, n), dtype=torch.uint8, device=self.device)
-        member[st.island_d[:n], torch.arange(n, device=self.device)] = 1
-        avail = island_has(have, member)
-        plane = min_island_cost(avail, self.cost_matrix_d)     # (K, P)
-        return plane[st.island_d[rows]]
+        given leecher rows, on the device: the alive have plane
+        ``(have | full) & alive`` reduced to island-level availability,
+        the per-source-island cost plane, and each leecher's own island's
+        row of it, read from the device planes in one `island_cost_rows`
+        launch."""
+        return island_cost_rows(st.have_d, st.full_d, st.alive_d,
+                                st.island_d, st.n, rows, self.cost_matrix_d)
 
     def _orders(self, st: SwarmState, rows: np.ndarray,
                 missing: np.ndarray) -> torch.Tensor:

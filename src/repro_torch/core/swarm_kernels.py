@@ -11,17 +11,20 @@ switch: the device of the tensors decides the path.
     raises — nothing falls back to the plain version;
   * a CPU tensor takes the plain PyTorch version beside each kernel
     (`rarest_keys_plain`, `rarest_orders_plain`, `island_has_plain`,
-    `match_requests_plain`, `match_requests_ragged_plain`);
+    `island_cost_rows_plain`, `match_requests_plain`,
+    `match_requests_ragged_plain`);
   * any other device raises.
 
 The kernels: `rarest_keys` (the keys alone), `rarest_orders` /
 `cost_orders` (keys and their stable order in one launch), `island_has`,
-and `match_requests` / `match_requests_ragged` (dense or CSR candidate
-rows, one launch for all of them).  `choke_order`, `min_island_cost` and
-`holder_topk` are plain torch ops on whatever device their inputs live
-on.  Each kernel wrapper adds one to `LAUNCHES[name]` where it launches,
-and nowhere else; ``name.route`` counts the launches of each route that
-the shapes choose (see `_orders_route`, `_match_route`).
+`island_cost_rows` (the hub's P4P cost rows from its device planes in
+one launch), and `match_requests` / `match_requests_ragged` (dense or CSR
+candidate rows, one launch for all of them).  `choke_order`,
+`min_island_cost` and `holder_topk` are plain torch ops on whatever
+device their inputs live on.  Each kernel wrapper adds one to
+`LAUNCHES[name]` where it launches, and nowhere else; ``name.route``
+counts the launches of each route that the shapes choose (see
+`_orders_route`, `_match_route`).
 
 Keys are int64 throughout (the reference numpy backend's width), so the
 int32 ceiling of the Pallas scoring kernel (counts * P^2 < 2^31) does not
@@ -49,8 +52,8 @@ COST_NONE = np.int64(64)
 
 LAUNCHES: Dict[str, int] = {
     "rarest_keys": 0, "rarest_keys.warp": 0, "rarest_keys.sort": 0,
-    "island_has": 0, "match_requests": 0, "match_requests.reg": 0,
-    "match_requests.wide": 0}
+    "island_has": 0, "island_cost_rows": 0, "match_requests": 0,
+    "match_requests.reg": 0, "match_requests.wide": 0}
 
 
 def reset_launches() -> None:
@@ -258,6 +261,80 @@ def min_island_cost(avail: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
                         torch.full((), int(COST_NONE), dtype=torch.int64,
                                    device=c.device))
     return plane.amin(dim=1)
+
+
+def island_cost_rows_plain(have: torch.Tensor, full: torch.Tensor,
+                           alive: torch.Tensor, island: torch.Tensor, n: int,
+                           rows: torch.Tensor,
+                           cost: torch.Tensor) -> torch.Tensor:
+    """(len(rows), P) int64 cheapest-holder cost rows of the hub's P4P
+    pump: the alive have plane ``(have | full) & alive`` of rows [0, n)
+    reduced to island availability (`island_has_plain`), the per-source
+    island cost plane (`min_island_cost`), and each row's island's row of
+    it.  ``have`` (cap, P) and ``full``, ``alive``, ``island`` (cap,) are
+    the hub's planes; ``rows`` index them; ``cost`` is (K, K)."""
+    n = int(n)
+    k = cost.shape[0]
+    dev = have.device
+    u8 = torch.uint8
+    plane = (have[:n].to(u8) | full[:n, None].to(u8)) \
+        & alive[:n, None].to(u8)
+    isl = island.to(torch.int64)
+    member = torch.zeros((k, n), dtype=torch.uint8, device=dev)
+    member[isl[:n], torch.arange(n, device=dev)] = 1
+    avail = island_has_plain(plane, member)
+    return min_island_cost(avail, cost)[isl[rows.to(torch.int64)]]
+
+
+# what the kernel's shared memory holds (csrc/swarm_kernels.cu)
+_COST_MAX_ISLANDS = 64
+_COST_MAX_PIECES = 4096
+
+
+def _launch_island_cost_rows(have: torch.Tensor, full: torch.Tensor,
+                             alive: torch.Tensor, island: torch.Tensor,
+                             n: int, rows: torch.Tensor,
+                             cost: torch.Tensor) -> torch.Tensor:
+    cap, p = have.shape
+    k = cost.shape[0]
+    r = rows.shape[0]
+    _require(have, "have", torch.uint8, (cap, p))
+    _require(full, "full", torch.uint8, (cap,))
+    _require(alive, "alive", torch.uint8, (cap,))
+    _require(island, "island", torch.int64, (cap,))
+    _require(rows, "rows", torch.int64, (r,))
+    _require(cost, "cost", torch.int64, (k, k))
+    if not 1 <= k <= _COST_MAX_ISLANDS or not 1 <= p <= _COST_MAX_PIECES:
+        raise ValueError(f"island_cost_rows kernel takes 1 <= K <= "
+                         f"{_COST_MAX_ISLANDS} islands and 1 <= P <= "
+                         f"{_COST_MAX_PIECES} pieces; got K={k} P={p}")
+    if not 0 <= n <= cap:
+        raise ValueError(f"n={n} rows outside the planes' {cap}")
+    out = torch.empty((r, p), dtype=torch.int64, device=have.device)
+    rc = _lib().island_cost_rows_launch(
+        have.data_ptr(), full.data_ptr(), alive.data_ptr(),
+        island.data_ptr(), rows.data_ptr(), cost.data_ptr(), cap, n, p, k, r,
+        out.data_ptr(), _stream(have.device))
+    _check(rc, "island_cost_rows")
+    if r > 0:
+        LAUNCHES["island_cost_rows"] += 1
+    return out
+
+
+def island_cost_rows(have: torch.Tensor, full: torch.Tensor,
+                     alive: torch.Tensor, island: torch.Tensor, n: int,
+                     rows: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
+    """The P4P cost rows of `island_cost_rows_plain`; on the card one
+    launch reads the planes in place.  ``rows`` must lie in [0, cap) and
+    the islands in [0, K): the plain version raises otherwise, the kernel
+    gives such rows COST_NONE."""
+    if not on_card(have, full, alive, island, rows, cost):
+        return island_cost_rows_plain(have, full, alive, island, n, rows,
+                                      cost)
+    return _launch_island_cost_rows(
+        _bytes(have), _bytes(full), _bytes(alive),
+        island.to(torch.int64).contiguous(), int(n),
+        rows.to(torch.int64).contiguous(), cost.to(torch.int64).contiguous())
 
 
 def _cost_span(counts: torch.Tensor, n_pieces: int,

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) kernel for the Mamba2 SSD chunked scan on f32 inputs
 // (repro_torch/kernels/ssd/kernel.py), on the CUDA cores, and the C entry
-// points, loaded with ctypes: `ssd_scan_launch` sends f32 here and bf16 /
-// f16 to the tensor-core kernel (ssd_scan_mma.cu); `ssd_scan_v1_launch`
+// points, loaded with ctypes: `ssd_scan_launch` sends f32 and f16 here and
+// bf16 to the tensor-core kernel (ssd_scan_mma.cu); `ssd_scan_v1_launch`
 // runs this kernel at any dtype, to time the two against each other.  A
 // launch runs on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so a refused launch is reported at the call site.
@@ -320,24 +320,34 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
 
 }  // namespace
 
-// the tensor-core route for bf16 and f16 (ssd_scan_mma.cu)
+// the tensor-core route for bf16 (ssd_scan_mma.cu)
 int ssd_scan_mma(const void* x, const void* dt, const void* A, const void* Bm,
                  const void* Cm, void* y, void* fin, int B, int S, int H,
-                 int P, int G, int N, int L, int dtype, cudaStream_t st);
+                 int P, int G, int N, int L, cudaStream_t st);
 
 extern "C" {
 
 // dtype: 0 f32, 1 bf16, 2 f16 (x, Bm, Cm and y); dt, A and fin are f32.
-// f32 runs the CUDA-core kernel above, bf16 and f16 the tensor-core kernel.
+// bf16 runs the tensor-core kernel; f32 and f16 the CUDA-core kernel
+// above, which keeps M = C B^T exp(segsum) dt in f32.  The tensor-core
+// kernel rounds M to the input dtype, and an f16 M overflows above 65504
+// where the reference's f32 M stays finite; bf16 keeps the f32 range.
 int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, void* y, void* fin,
                     int B, int S, int H, int P, int G, int N, int L,
                     int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L, st);
-  return ssd_scan_mma(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L, dtype,
-                      st);
+  switch (dtype) {
+    case 0:
+      return launch<float>(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L, st);
+    case 1:
+      return ssd_scan_mma(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L, st);
+    case 2:
+      return launch<__half>(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L,
+                            st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The CUDA-core kernel above at any dtype: the yardstick that the

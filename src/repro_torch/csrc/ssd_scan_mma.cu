@@ -1,7 +1,8 @@
 // Hopper (sm_90a) tensor-core kernel for the Mamba2 SSD chunked scan on
-// bf16 and f16 inputs (repro_torch/kernels/ssd/kernel.py).
-// `ssd_scan_launch` (ssd_scan.cu) sends dtypes 1 and 2 here and f32 to the
-// CUDA-core kernel there; this file has no C entry point of its own.
+// bf16 inputs (repro_torch/kernels/ssd/kernel.py).
+// `ssd_scan_launch` (ssd_scan.cu) sends dtype 1 (bf16) here and f32 and
+// f16 to the CUDA-core kernel there; this file has no C entry point of its
+// own.
 //
 // ssd_scan replaces src/repro/kernels/ssd/kernel.py ssd_pallas /
 // _ssd_kernel.  With cum the inclusive cumsum of dt*A over a chunk of L
@@ -44,14 +45,15 @@
 //   ldmatrix.trans).  C state^T and the state update take the f32 operands
 //   through tf32 mma.sync m16n8k8 (C and B are exact in tf32).
 // - rounding points (the plain version is f32 throughout): M is rounded to
-//   the input dtype (bf16 or f16); the state, as the right operand of
+//   bf16, whose range is f32's, so M cannot overflow (an f16 M would above
+//   65504, which is why f16 takes the CUDA-core kernel); the state, as the
+//   right operand of
 //   C state^T, and the decay-scaled (dt exp(cum_L - cum_j) x_j) of the
 //   state update are rounded to tf32.  The state itself is carried in f32.
 //   tests/test_torch_flash_ssd.py emulates these rounding points on the
 //   CPU (B=1, S=1024, H=4, P=N=64, chunk 256, bf16 inputs) and holds them
 //   within 1e-2 of max|y| and of max|state| of the f32 quadratic form;
-//   tf32 keeps the f32 range, so a large state cannot overflow an f16
-//   operand.
+//   tf32 keeps the f32 range, so a large state cannot overflow either.
 // - the difference form exp(cum_i - cum_j) is kept; the factored form
 //   exp(cum_i) exp(-cum_j) overflows on long chunks.
 
@@ -456,19 +458,10 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
 
 }  // namespace
 
-// The tensor-core route of ssd_scan_launch (ssd_scan.cu): dtype 1 bf16,
-// 2 f16; anything else is refused.
+// The tensor-core route of ssd_scan_launch (ssd_scan.cu), bf16 only.
 int ssd_scan_mma(const void* x, const void* dt, const void* A, const void* Bm,
                  const void* Cm, void* y, void* fin, int B, int S, int H,
-                 int P, int G, int N, int L, int dtype, cudaStream_t st) {
-  switch (dtype) {
-    case 1:
-      return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G,
-                                   N, L, st);
-    case 2:
-      return launch<__half>(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L,
-                            st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                 int P, int G, int N, int L, cudaStream_t st) {
+  return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L,
+                               st);
 }

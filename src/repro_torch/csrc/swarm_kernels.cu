@@ -8,7 +8,10 @@
 //                    _rarest_keys_pallas (rarest-first composite keys);
 //    rarest_orders   the same keys and their stable per-row order in one
 //                    kernel (what the hub's pump runs).
-// 2. island_has      replaces _island_has_pallas (P4P island availability).
+// 2. island_has      replaces _island_has_pallas (P4P island availability);
+//    island_cost_rows the same reduction fused with everything the hub's
+//                    P4P pump builds around it, from its device planes to
+//                    the per-row cost rows (what the hub's pump runs).
 // 3. match_requests  replaces _match_requests_pallas (greedy holder walk),
 //                    dense rows or ragged (CSR) rows in one launch.
 //
@@ -17,7 +20,10 @@
 
 #include <climits>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -292,25 +298,28 @@ __device__ __forceinline__ unsigned nonzero_bytes(unsigned x) {
   return ((y >> 7) * 0x10204080u) >> 28;
 }
 
-// up to 64 bytes of a have row as a bit mask
+// up to 64 bytes of a have row as a bit mask: bit p set where
+// row[p] & byte_mask is not zero
 __device__ __forceinline__ unsigned long long have_bits(
-    const uint8_t* __restrict__ row, int len) {
+    const uint8_t* __restrict__ row, int len, unsigned byte_mask = 0xffu) {
   unsigned long long bits = 0;
   if ((len & 15) == 0 && ((uintptr_t)row & 15) == 0) {
+    const unsigned rep = (byte_mask & 0xffu) * 0x01010101u;
     const uint4* v = reinterpret_cast<const uint4*>(row);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       if (q < (len >> 4)) {
         const uint4 x = __ldg(v + q);
-        const unsigned nib = nonzero_bytes(x.x) | nonzero_bytes(x.y) << 4 |
-                             nonzero_bytes(x.z) << 8 |
-                             nonzero_bytes(x.w) << 12;
+        const unsigned nib = nonzero_bytes(x.x & rep) |
+                             nonzero_bytes(x.y & rep) << 4 |
+                             nonzero_bytes(x.z & rep) << 8 |
+                             nonzero_bytes(x.w & rep) << 12;
         bits |= (unsigned long long)nib << (16 * q);
       }
     }
   } else {
     for (int p = 0; p < len; ++p)
-      if (row[p]) bits |= 1ULL << p;
+      if (row[p] & byte_mask) bits |= 1ULL << p;
   }
   return bits;
 }
@@ -550,6 +559,190 @@ __global__ void match_requests_kernel(MatchArgs a) {
     if ((wide >> q) & 1u) match_row_wide(a, base + q, wmin, wcount);
 }
 
+// ----------------------------------------------------------------------
+// island_cost_rows: the P4P cost plane of a pump in one launch.
+//   avail[k,p] = OR over rows i < n with island[i] == k of
+//                ((have[i,p] | full[i]) & alive[i]) != 0
+//   out[r,p]   = min over k of (avail[k,p] ? cost[s,k] : COST_NONE),
+//                s = island[rows[r]]
+// which is island_has on the alive have plane, min_island_cost and the
+// gather by island[rows] of swarm_kernels.py, bit for bit.
+//
+// Bound: bytes (the (n, P) have plane and the (R, P) int64 rows, ~0.3 MB
+// at N = R = 500, P = 64: ~0.0001 ms), far below what one launch costs;
+// what the hub paid was the ~11 launches of that composition (plane ops,
+// the member matrix, island_has, min_island_cost, two gathers), so the
+// design is one launch whose dependent memory round trips are few:
+//  * one thread-block cluster of 8 blocks (distributed shared memory), so
+//    the reduction over rows needs no global atomics, no zeroed scratch
+//    and no second launch;
+//  * a lane per row: its full / alive / island, then its 64-piece chunk
+//    of have in four 16-byte loads, packed to a 64-bit mask (byte-wise
+//    `& alive` kept exact); a full and alive row contributes every piece
+//    without a load.  The warp then ORs its 32 masks island by island
+//    (one __reduce_or_sync pair per island present in the batch) and the
+//    first lane of each island ORs the result into the block's
+//    bits[K][ceil(P/32)] in shared memory; consecutive 32-row batches go
+//    to different blocks;
+//  * after cluster.sync() each block ORs its peers' bits into its own
+//    through map_shared_rank (OR is idempotent, so a peer reading a word
+//    while it is widened still reads a superset of the block's own bits),
+//    then arrives at a second cluster barrier that it waits on only
+//    before it exits;
+//  * the (K, K) cost matrix is loaded into shared memory while the rows
+//    are reduced, and the cost plane per source island is computed once
+//    per block in shared memory, a tile of up to 2048 int64 entries (K x
+//    TP pieces) at a time; each warp copies its rows' island rows of it
+//    out (rows gw, gw + 64, ...: a few rows a warp, each warp's chain of
+//    rows unrolled), with the rows' islands loaded at the start, beside
+//    the reduction.
+// Limits: K <= 64, P <= 4096 (cost 32 KB, bits 32 KB and the plane tile
+// 16 KB of shared memory at most).  Rows outside [0, cap) and islands
+// outside [0, K) (which the plain version rejects) contribute nothing and
+// read COST_NONE.
+// ----------------------------------------------------------------------
+constexpr int kCostCluster = 8;          // blocks, one cluster
+constexpr int kCostWarps = 8;            // warps a block
+constexpr int kCostWarpsAll = kCostCluster * kCostWarps;
+constexpr int kCostMaxIslands = 64;
+constexpr int kCostMaxPieces = 4096;
+constexpr int kCostPlaneEntries = 2048;  // int64 plane tile, 16 KB
+constexpr long long kCostNone = 64;      // swarm_kernels.COST_NONE
+
+// the island of leecher row r, or -1 (r past R, a row outside [0, cap),
+// an island outside [0, K))
+__device__ __forceinline__ int row_island(const int64_t* __restrict__ rows,
+                                          const int64_t* __restrict__ island,
+                                          int cap, int K, int R, int r) {
+  if (r >= R) return -1;
+  const long long row = rows[r];
+  if (row < 0 || row >= cap) return -1;
+  const long long is = island[row];
+  return is >= 0 && is < K ? (int)is : -1;
+}
+
+__global__ void __cluster_dims__(kCostCluster, 1, 1)
+__launch_bounds__(32 * kCostWarps)
+island_cost_rows_kernel(const uint8_t* __restrict__ have,
+                        const uint8_t* __restrict__ full,
+                        const uint8_t* __restrict__ alive,
+                        const int64_t* __restrict__ island,
+                        const int64_t* __restrict__ rows,
+                        const int64_t* __restrict__ cost, int cap, int n,
+                        int P, int K, int R, int TP,
+                        int64_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char cost_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (P + 31) >> 5;
+  // [K][K] cost, [K][TP] plane tile, [K][C] availability bits
+  long long* cost_s = reinterpret_cast<long long*>(cost_smem);
+  long long* plane = cost_s + K * K;
+  unsigned* bits = reinterpret_cast<unsigned*>(plane + K * TP);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int rank = (int)cluster.block_rank();
+  // warp w of block b is the cluster's warp w * 8 + b: consecutive
+  // batches on different SMs
+  const int gw = (tid >> 5) * kCostCluster + rank;
+  for (int w = tid; w < K * C; w += blockDim.x) bits[w] = 0;
+  for (int w = tid; w < K * K; w += blockDim.x) cost_s[w] = cost[w];
+  // the warp's leecher rows are gw + 64 j; lane j holds row j's island,
+  // loaded while the rows are reduced (at R <= 2048 a warp has no more)
+  const int s_first =
+      row_island(rows, island, cap, K, R, gw + kCostWarpsAll * lane);
+  __syncthreads();
+
+  // 1. rows [0, n) into island bits
+  const int nb = (n + 31) >> 5;
+  for (int g = gw; g < nb; g += kCostWarpsAll) {
+    const int i = g * 32 + lane;
+    unsigned a = 0, fa = 0;
+    int isl = -1;
+    if (i < n) {
+      const long long s = island[i];
+      a = alive[i];
+      fa = full[i] & a;
+      isl = s >= 0 && s < K ? (int)s : -1;
+    }
+    const bool live = isl >= 0 && a != 0;
+    for (int c64 = 0; c64 * 64 < P; ++c64) {
+      const int len = min(64, P - c64 * 64);
+      unsigned long long m = 0;
+      if (live) {
+        m = fa != 0 ? (len == 64 ? ~0ULL : (1ULL << len) - 1ULL)
+                    : have_bits(have + (size_t)i * P + c64 * 64, len, a);
+      }
+      unsigned pending = __ballot_sync(kFull, m != 0);
+      while (pending != 0) {
+        const int leader = __ffs(pending) - 1;
+        const int k = __shfl_sync(kFull, isl, leader);
+        const bool mine = isl == k && m != 0;
+        const unsigned lo = __reduce_or_sync(kFull, mine ? (unsigned)m : 0u);
+        const unsigned hi =
+            __reduce_or_sync(kFull, mine ? (unsigned)(m >> 32) : 0u);
+        if (lane == leader) {
+          const int w = k * C + 2 * c64;
+          if (lo != 0) atomicOr(&bits[w], lo);
+          if (hi != 0) atomicOr(&bits[w + 1], hi);   // hi != 0: len > 32
+        }
+        pending &= ~__ballot_sync(kFull, mine);
+      }
+    }
+  }
+
+  // 2. the cluster's bits: each block ORs its peers' into its own
+  cluster.sync();
+  for (int w = tid; w < K * C; w += blockDim.x) {
+    unsigned v = bits[w];
+    for (int q = 0; q < kCostCluster; ++q)
+      if (q != rank) v |= cluster.map_shared_rank(bits, q)[w];
+    bits[w] = v;
+  }
+  __syncthreads();
+  // this block is done with its peers' shared memory; the wait at the
+  // end keeps each block's bits alive until every peer has read them
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+
+  // 3. the cost plane, a tile of TP pieces at a time, and the rows
+  const int my_rows = R > gw ? (R - gw + kCostWarpsAll - 1) / kCostWarpsAll
+                             : 0;
+  for (int p0 = 0; p0 < P; p0 += TP) {
+    const int tp = min(TP, P - p0);
+    for (int e = tid; e < K * tp; e += blockDim.x) {
+      const int s = e / tp;
+      const int q = e - s * tp;
+      const int p = p0 + q;
+      const long long* crow = cost_s + s * K;
+      long long m = LLONG_MAX;
+      for (int k = 0; k < K; ++k) {
+        const bool has = (bits[k * C + (p >> 5)] >> (p & 31)) & 1u;
+        const long long v = has ? crow[k] : kCostNone;
+        m = v < m ? v : m;
+      }
+      plane[s * TP + q] = m;
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < my_rows; j0 += 32) {
+      const int s = j0 == 0 ? s_first
+                            : row_island(rows, island, cap, K, R,
+                                         gw + kCostWarpsAll * (j0 + lane));
+      const int nj = min(32, my_rows - j0);
+      // rows are independent: unrolled, their shuffle, shared load and
+      // store chains overlap
+#pragma unroll 4
+      for (int j = 0; j < nj; ++j) {
+        const int sj = __shfl_sync(kFull, s, j);
+        int64_t* orow =
+            out + (size_t)(gw + kCostWarpsAll * (j0 + j)) * P + p0;
+        for (int q = lane; q < tp; q += 32)
+          orow[q] = sj >= 0 ? plane[sj * TP + q] : kCostNone;
+      }
+    }
+    __syncthreads();   // the next tile rewrites the plane
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 }  // namespace
 
 extern "C" {
@@ -595,6 +788,42 @@ int island_has_launch(const void* have, const void* member, int n_rows,
     island_has_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)have, (const uint8_t*)member, n_rows, k_islands,
         n_pieces, (uint8_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// have (cap, P) uint8, full / alive (cap,) uint8, island (cap,) int64:
+// rows [0, n) are reduced; rows (R,) int64 index [0, cap); cost (K, K)
+// int64; out (R, P) int64.  K in [1, 64], P in [1, 4096].
+int island_cost_rows_launch(const void* have, const void* full,
+                            const void* alive, const void* island,
+                            const void* rows, const void* cost, int cap,
+                            int n, int n_pieces, int k_islands, int n_rows,
+                            void* out, void* stream) {
+  if (k_islands < 1 || k_islands > kCostMaxIslands || n_pieces < 1 ||
+      n_pieces > kCostMaxPieces || n < 0 || n > cap || n_rows < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_rows > 0) {
+    // the plane tile: as many 32-piece chunks as 2048 entries hold
+    const int chunks = (n_pieces + 31) / 32;
+    const int fit = kCostPlaneEntries / (32 * k_islands);
+    const int tp = 32 * (fit < 1 ? 1 : (fit < chunks ? fit : chunks));
+    const size_t smem =
+        (size_t)k_islands * (k_islands + tp) * sizeof(long long) +
+        (size_t)k_islands * chunks * sizeof(unsigned);
+    static bool wide_smem = false;   // more than 48 KB needs an opt-in
+    if (smem > 48 * 1024 && !wide_smem) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          island_cost_rows_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, 80 * 1024);
+      if (e != cudaSuccess) return (int)e;
+      wide_smem = true;
+    }
+    island_cost_rows_kernel<<<kCostCluster, 32 * kCostWarps, smem,
+                              (cudaStream_t)stream>>>(
+        (const uint8_t*)have, (const uint8_t*)full, (const uint8_t*)alive,
+        (const int64_t*)island, (const int64_t*)rows, (const int64_t*)cost,
+        cap, n, n_pieces, k_islands, n_rows, tp, (int64_t*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,8 @@ import torch
 FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
 # dtype code shared with csrc/*.cu (0 f32, 1 bf16, 2 f16)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the dtypes that flash_fwd_launch / ssd_scan_launch send to the
-# tensor-core kernels (f32 runs on the CUDA cores)
+# the dtypes that flash_fwd_launch sends to the tensor-core kernel (f32
+# runs on the CUDA cores; ssd_scan_launch sends bf16 alone there)
 MMA_TYPES = (torch.bfloat16, torch.float16)
 
 

@@ -10,14 +10,15 @@ Within a chunk of L steps, with cum the inclusive cumsum of dt*A:
 
 all in f32, the chunks walked in order.  `ssd_scan` launches a kernel for
 CUDA tensors and takes `ssd_scan_plain` for CPU tensors.  The kernel's
-route follows the dtype: f32 runs `csrc/ssd_scan.cu` (one block per
-(batch, head), f32 FMAs on the CUDA cores), bf16 and f16
+route follows the dtype: f32 and f16 run `csrc/ssd_scan.cu` (one block per
+(batch, head), f32 FMAs on the CUDA cores, M kept in f32), bf16
 `csrc/ssd_scan_mma.cu` (one block per (batch, head, slice of up to 64 of P),
-mma.sync on the tensor cores; M is rounded to the input dtype, the state
-and the decay-scaled x of its update to tf32).  It adds one to
-``LAUNCHES["ssd_scan"]`` where it launches, and one to
-``LAUNCHES["ssd_scan.mma"]`` too when the launch took the tensor-core
-route; nowhere else.
+mma.sync on the tensor cores; M is rounded to bf16, the state and the
+decay-scaled x of its update to tf32).  f16 stays off the tensor-core
+route because an f16 M overflows above 65504 where the reference's f32 M
+does not.  It adds one to ``LAUNCHES["ssd_scan"]`` where it launches, and
+one to ``LAUNCHES["ssd_scan.mma"]`` too when the launch took the
+tensor-core route; nowhere else.
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, MMA_TYPES,
-                                        check, lib, on_card, require, stream)
+from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, check, lib,
+                                        on_card, require, stream)
 from repro_torch.models.ssm import ssd_scan as chunked_scan
 
 LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan.mma": 0}
@@ -83,7 +84,7 @@ def _launch_ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                N, L, DTYPE_CODE[x.dtype], stream(x.device))
     check(rc, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
-    if not v1 and x.dtype in MMA_TYPES:
+    if not v1 and x.dtype == torch.bfloat16:
         LAUNCHES["ssd_scan.mma"] += 1
     return y, fin
 

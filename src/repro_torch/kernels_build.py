@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under `csrc/` (`swarm_kernels.cu`; `flash_fwd.cu` and
-`ssd_scan.cu`, the f32 kernels and the C entry points; `flash_fwd_mma.cu`
-and `ssd_scan_mma.cu`, the tensor-core kernels for bf16 and f16, with
+`ssd_scan.cu`, the CUDA-core kernels and the C entry points;
+`flash_fwd_mma.cu`, the tensor-core flash kernel for bf16 and f16, and
+`ssd_scan_mma.cu`, the tensor-core SSD kernel for bf16, with
 `mma_sm90.cuh`) are compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc`
 per source all started together, and linked into one shared library with
 a plain C interface under ``build/repro_torch/`` at the repository root,
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "rarest_orders_launch": (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P,
                              _P),
     "island_has_launch": (_P, _P, _I, _I, _I, _P, _P),
+    "island_cost_rows_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _P, _P),
     "match_requests_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                               _I, _I, _I, _P, _P, _P),
     "flash_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

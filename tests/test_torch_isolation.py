@@ -122,6 +122,20 @@ def test_launchers_take_only_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sk._launch_island_has(torch.zeros((3, 4), dtype=torch.uint8),
                               torch.zeros((2, 3), dtype=torch.uint8))
+    u8, i64 = torch.uint8, torch.int64
+    planes = (torch.zeros((6, 4), dtype=u8), torch.zeros(6, dtype=u8),
+              torch.zeros(6, dtype=u8), torch.zeros(6, dtype=i64))
+    with pytest.raises(ValueError, match="CUDA"):
+        sk._launch_island_cost_rows(*planes, 5, torch.zeros(3, dtype=i64),
+                                    torch.zeros((2, 2), dtype=i64))
+    meta = tuple(t.to("meta") for t in planes)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sk.island_cost_rows(*meta, 5, torch.zeros(3, dtype=i64,
+                                                  device="meta"),
+                            torch.zeros((2, 2), dtype=i64, device="meta"))
+    with pytest.raises(ValueError, match="mixed devices"):
+        sk.island_cost_rows(*meta, 5, torch.zeros(3, dtype=i64),
+                            torch.zeros((2, 2), dtype=i64))
     i32 = torch.zeros((2, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         sk._launch_match_requests(

@@ -100,6 +100,70 @@ def test_island_has_kernel_matches_plain(sk, seed):
                            sk.island_has_plain(have, member))
 
 
+def _cost_rows_inputs(rs, cap, n, P, K, R, max_cost=16):
+    have = G((rs.random((cap, P)) < rs.choice([0.002, 0.05, 0.5]))
+             .astype(np.uint8))
+    full = G((rs.random(cap) < rs.choice([0.0, 0.05, 0.5])).astype(np.uint8))
+    alive = G((rs.random(cap) < rs.choice([0.5, 0.9, 1.0])).astype(np.uint8))
+    island = G(rs.integers(0, max(K - int(rs.integers(0, 2)), 1), cap))
+    rows = G(rs.integers(0, max(n, 1), R))
+    cost = G(rs.integers(0, max_cost, (K, K)))
+    return have, full, alive, island, n, rows, cost
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_island_cost_rows_kernel_matches_plain(sk, seed):
+    """The fused P4P cost rows over random shapes: N not a multiple of a
+    warp's 32 rows or of the cluster's 64 warps, P not a multiple of 32
+    (to the kernel's 4096), K to 64, empty islands, costs above
+    COST_NONE, R = 0."""
+    rs = np.random.default_rng(30 + seed)
+    shapes = [(int(rs.integers(1, 3000)), int(rs.integers(1, 200)),
+               int(rs.integers(1, 13)), None) for _ in range(8)]
+    shapes += [(2049, 4096, 8, None), (700, 4095, 64, None),
+               (33, 1000, 64, None), (500, 64, 8, 0), (1, 1, 1, None)]
+    for n, P, K, R in shapes:
+        cap = n + int(rs.integers(0, 40))
+        R = int(rs.integers(1, 2 * n + 2)) if R is None else R
+        args = _cost_rows_inputs(rs, cap, n, P, K, R,
+                                 max_cost=int(rs.choice([16, 200])))
+        n0 = sk.LAUNCHES["island_cost_rows"]
+        got = sk.island_cost_rows(*args)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["island_cost_rows"] == n0 + int(R > 0)
+        want = sk.island_cost_rows_plain(*args)
+        assert got.dtype == torch.int64
+        assert torch.equal(got, want), (n, P, K, R)
+
+
+def test_island_cost_rows_kernel_refuses_what_it_does_not_take(sk):
+    rs = np.random.default_rng(5)
+    have, full, alive, island, n, rows, cost = _cost_rows_inputs(
+        rs, 40, 30, 64, 8, 10)
+    n0 = dict(sk.LAUNCHES)
+    bad = [
+        (have.bool(), full, alive, island, n, rows, cost),
+        (have, full.long(), alive, island, n, rows, cost),
+        (have, full, alive, island.int(), n, rows, cost),
+        (have, full[:-1], alive, island, n, rows, cost),
+        (have, full, alive, island, n, rows, cost[:, :-1]),
+        (have, full, alive, island, 41, rows, cost),
+        (have.t(), full, alive, island, n, rows, cost),
+    ]
+    for args in bad:
+        with pytest.raises((TypeError, ValueError)):
+            sk._launch_island_cost_rows(*args)
+    wide = G(np.zeros((40, 4097), dtype=np.uint8))
+    with pytest.raises(ValueError, match="P <= 4096"):
+        sk.island_cost_rows(wide, full, alive, island, n, rows, cost)
+    many = G(np.zeros((65, 65), dtype=np.int64))
+    with pytest.raises(ValueError, match="K <= 64"):
+        sk.island_cost_rows(have, full, alive, island, n, rows, many)
+    with pytest.raises(ValueError, match="mixed devices"):
+        sk.island_cost_rows(have, full, alive, island, n, rows.cpu(), cost)
+    assert sk.LAUNCHES == n0
+
+
 def _match_case(rs, R, P, N, C):
     cand = np.stack([rs.choice(N, C, replace=C > N) for _ in range(R)])
     pad = rs.random((R, C)) < 0.1
@@ -209,12 +273,15 @@ def test_small_flash_crowd_on_cuda_matches_cpu(sk):
                      device="cpu")
     assert a["device"].startswith("cuda")
     assert {k: a[k] for k in keys} == {k: b[k] for k in keys}
-    n0 = sk.LAUNCHES["island_has"]
+    n0 = dict(sk.LAUNCHES)
     a = scenario_ix(verbose=False, n_volunteers=24, n_islands=3,
                     device="cuda")
+    n = {k: sk.LAUNCHES[k] - n0[k] for k in n0}
     b = scenario_ix(verbose=False, n_volunteers=24, n_islands=3,
                     device="cpu")
-    assert sk.LAUNCHES["island_has"] > n0
+    # the P4P arm's pumps: one cost-rows launch each, never island_has
+    assert n["island_cost_rows"] > 0 and n["island_has"] == 0
+    assert n["island_cost_rows"] <= n["rarest_keys"]
     for arm in ("naive", "p4p"):
         assert {k: a[arm][k] for k in keys + ("cross_isp_bytes",)} == \
             {k: b[arm][k] for k in keys + ("cross_isp_bytes",)}
@@ -249,11 +316,14 @@ def test_small_chaos_and_upgrade_on_cuda_match_cpu(sk):
     params = dict(seed=3, n_volunteers=8, n_pieces=12, n_parts=16,
                   image_bytes=96_000, real_image=False, batched=True,
                   n_islands=3, island_partitions=True)
-    n0 = sk.LAUNCHES["island_has"]
+    n0 = dict(sk.LAUNCHES)
     a = ChaosScenario(device="cuda", **params).run()
     a.check_invariants()
+    n = {k: sk.LAUNCHES[k] - n0[k] for k in n0}
     b = ChaosScenario(device="cpu", **params).run()
-    assert sk.LAUNCHES["island_has"] > n0
+    # every pump is a P4P pump here: one cost-rows launch each
+    assert n["island_cost_rows"] == n["rarest_keys"] > 0
+    assert n["island_has"] == 0
     assert virtual_time_fields("chaos", a.report()) == \
         virtual_time_fields("chaos", b.report())
 
@@ -351,7 +421,8 @@ def test_flash_fwd_kernel_edges(mk, case):
 
 def _ssd_case(ssk, rs, B, S, H, P, G_, N, chunk, dtype):
     """One ssd_scan launch against its plain version; the launch counts
-    show the route."""
+    show the route: bf16 on the tensor cores, f32 and f16 on the CUDA
+    cores."""
     x = G(rs.standard_normal((B, S, H, P)).astype(np.float32)).to(dtype)
     dt = G(np.logaddexp(rs.standard_normal((B, S, H)), 0)
            .astype(np.float32) * 0.5)
@@ -363,7 +434,7 @@ def _ssd_case(ssk, rs, B, S, H, P, G_, N, chunk, dtype):
     n0 = dict(ssk.LAUNCHES)
     y, fin = ssk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
-    mma = int(dtype != torch.float32)
+    mma = int(dtype == torch.bfloat16)   # f16 keeps M in f32, off mma
     assert ssk.LAUNCHES == {"ssd_scan": n0["ssd_scan"] + 1,
                             "ssd_scan.mma": n0["ssd_scan.mma"] + mma}
     wy, wfin = ssk.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
@@ -410,6 +481,40 @@ SSD_EDGES = [
 def test_ssd_scan_kernel_edges(mk, case):
     _, ssk = mk
     _ssd_case(ssk, np.random.default_rng(8), *case)
+
+
+def test_ssd_scan_f16_keeps_large_m_finite(mk):
+    """f16 inputs whose M = C B^T exp(segsum) dt exceeds f16's 65504
+    inside a chunk (B and C near 40 over N = 64, dt near 1, slow decay)
+    while y (x small) and the state fit in f16: the reference keeps M in
+    f32, so the kernel must give a finite y within the SSD cases'
+    tolerance of its plain version."""
+    _, ssk = mk
+    rs = np.random.default_rng(65504)
+    B, S, H, P, N, chunk = 1, 200, 2, 64, 64, 64
+    x = G((rs.standard_normal((B, S, H, P)) * 1e-3).astype(np.float32)) \
+        .half()
+    dt = G((1.0 + 0.1 * rs.random((B, S, H))).astype(np.float32))
+    A = G(np.full(H, -0.01, dtype=np.float32))
+    Bm = G((40 + rs.random((B, S, 1, N))).astype(np.float32)).half()
+    Cm = G((40 + rs.random((B, S, 1, N))).astype(np.float32)).half()
+    cb = torch.einsum("bsn,btn->bst", Cm[:, :, 0].float(),
+                      Bm[:, :, 0].float())
+    assert float(cb.abs().max()) > 65504.0
+    n0 = dict(ssk.LAUNCHES)
+    y, fin = ssk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    wy, wfin = ssk.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    assert bool(torch.isfinite(wy).all()) and \
+        float(wy.float().abs().max()) < 65504.0
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
+    tol = 1e-2
+    assert float((y.float() - wy.float()).abs().max()) <= \
+        tol * max(1.0, float(wy.float().abs().max()))
+    assert float((fin - wfin).abs().max()) <= \
+        tol * max(1.0, float(wfin.abs().max()))
+    assert ssk.LAUNCHES == {"ssd_scan": n0["ssd_scan"] + 1,
+                            "ssd_scan.mma": n0["ssd_scan.mma"]}
 
 
 def test_reduced_hybrid_model_on_cuda_matches_cpu(mk):

@@ -351,3 +351,39 @@ def test_load_state_arrays_gives_reference_orders_and_picks(p4p):
     assert dec == cap["dec"]
     assert np.array_equal(starved, cap["starved"])
     assert sum(len(d) for d in dec) > 0
+
+
+# ============ the P4P cost rows against the reference hub =============== #
+@pytest.mark.parametrize("n_islands,empty", [(1, 0), (3, 0), (8, 0), (8, 3)])
+def test_piece_cost_matches_reference_hub(n_islands, empty):
+    """A CPU hub with a topology gives the reference hub's `_piece_cost`
+    on the same state: dead rows, full rows (alive and dead), islands
+    with no member (``empty`` of them), leecher rows in any order."""
+    from repro.core import SwarmHub as RHub, Topology as RTopology
+    from repro.core.swarm_arrays import SwarmState as RState
+    from repro_torch.core import Topology
+    rs = np.random.default_rng(40 + n_islands + empty)
+    n, P = 90, 48
+    names = [f"V{i:03d}" for i in range(n)]
+    rhub = RHub(backend="numpy")
+    rhub.set_topology(RTopology.make(names, n_islands, seed=6))
+    hub = SwarmHub(device="cpu")
+    hub.set_topology(Topology.make(names, n_islands, seed=6))
+    assert np.array_equal(hub.cost_matrix, rhub.cost_matrix)
+    manifest = SimpleNamespace(n_pieces=P)
+    rst = RState("a", manifest, capacity=128)
+    st = SwarmState("a", manifest, capacity=128, device="cpu")
+    have = rs.random((n, P)) < 0.1
+    full, alive = rs.random(n) < 0.1, rs.random(n) < 0.8
+    island = rs.integers(0, n_islands - empty, n)
+    for s in (rst, st):
+        s.n = n
+        s.have[:n], s.full[:n], s.alive[:n] = have, full, alive
+        s.island[:n] = island
+    st.plane_dirty.update(range(n))
+    st.sync_planes()
+    rows = rs.permutation(n)[:57]
+    want = rhub._piece_cost(rst, rows)
+    got = hub._piece_cost(st, torch.from_numpy(rows.astype(np.int64)))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want)

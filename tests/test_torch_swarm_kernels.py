@@ -127,6 +127,69 @@ def test_cost_orders_above_int32_match_numpy():
                                           backend="numpy"))
 
 
+# (cap, n, P, K, R, p_alive, p_full, empty islands, max cost)
+COST_ROWS_CASES = {
+    "ragged_rows": (64, 37, 33, 5, 13, 1.0, 0.0, 0, 16),
+    "dead_rows": (80, 70, 64, 8, 70, 0.6, 0.0, 0, 16),
+    "full_rows": (50, 50, 40, 4, 29, 0.8, 0.25, 0, 16),
+    "empty_island": (40, 33, 17, 6, 20, 0.9, 0.1, 2, 16),
+    "one_island": (32, 30, 65, 1, 30, 0.9, 0.1, 0, 16),
+    "no_rows": (8, 0, 20, 3, 0, 1.0, 0.0, 0, 16),
+    "costs_above_none": (70, 61, 100, 7, 61, 0.9, 0.05, 1, 200),
+}
+
+
+def _cost_rows_case(name, seed):
+    """The hub's planes (rows past n hold junk the reduction must skip),
+    leecher rows in any order with repeats, and a (K, K) cost matrix."""
+    cap, n, P, K, R, p_alive, p_full, empty, max_cost = \
+        COST_ROWS_CASES[name]
+    rs = np.random.default_rng(seed)
+    have = rs.random((cap, P)) < rs.choice([0.02, 0.2])
+    full = rs.random(cap) < p_full
+    alive = rs.random(cap) < p_alive
+    island = rs.integers(0, K - empty, cap).astype(np.int64)
+    rows = rs.choice(max(n, 1), R).astype(np.int64)
+    cost = rs.integers(0, max_cost, (K, K)).astype(np.int64)
+    np.fill_diagonal(cost, 0)
+    return have, full, alive, island, n, rows, cost
+
+
+def _cost_rows_reference(have, full, alive, island, n, rows, cost,
+                         backend="numpy"):
+    """The reference hub's composition (`SwarmHub._piece_cost`)."""
+    h = (have[:n] | full[:n, None]) & alive[:n, None]
+    member = np.zeros((cost.shape[0], n), dtype=bool)
+    member[island[:n], np.arange(n)] = True
+    avail = (ref.island_has_np(h, member) if backend == "numpy"
+             else ref.island_has(h, member, backend=backend))
+    return ref.min_island_cost(avail, cost)[island[rows]]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", sorted(COST_ROWS_CASES))
+def test_island_cost_rows_matches_reference_composition(case, seed):
+    """The fused P4P cost rows against the reference's island_has_np +
+    min_island_cost + gather, and against the port's own composition
+    (the alive plane, `island_has`, `min_island_cost`, the gather)."""
+    args = _cost_rows_case(case, 1000 + seed)
+    want = _cost_rows_reference(*args)
+    have, full, alive, island, n, rows, cost = args
+    planes = (T(have.astype(np.uint8)), T(full.astype(np.uint8)),
+              T(alive.astype(np.uint8)), T(island))
+    for fn in (sk.island_cost_rows_plain, sk.island_cost_rows):
+        got = fn(*planes, n, T(rows), T(cost))
+        assert got.dtype == torch.int64 and got.shape == want.shape
+        assert np.array_equal(got.numpy(), want), (case, fn.__name__)
+    h, f, a, isl = planes
+    alive_plane = (h[:n] | f[:n, None]) & a[:n, None]
+    member = torch.zeros((cost.shape[0], n), dtype=torch.uint8)
+    member[isl[:n], torch.arange(n)] = 1
+    composed = sk.min_island_cost(sk.island_has(alive_plane, member),
+                                  T(cost))[isl[T(rows)]]
+    assert np.array_equal(composed.numpy(), want)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_island_has_and_min_island_cost_match_numpy(seed):
     rng = random.Random(300 + seed)
@@ -278,6 +341,21 @@ def test_island_has_matches_pallas_interpret(seed):
         want = ref.island_has(have, member, backend="pallas")
         assert np.array_equal(sk.island_has(T(have), T(member)).numpy(),
                               want)
+
+
+@pytest.mark.parametrize("case", sorted(set(COST_ROWS_CASES) - {"no_rows"}))
+def test_island_cost_rows_matches_pallas_interpret(case):
+    """The cost rows against the reference composition with its Pallas
+    `island_has` (interpret mode); N=0 is left to the numpy case above."""
+    _need_pallas()
+    args = _cost_rows_case(case, 1100)
+    have, full, alive, island, n, rows, cost = args
+    got = sk.island_cost_rows(T(have.astype(np.uint8)),
+                              T(full.astype(np.uint8)),
+                              T(alive.astype(np.uint8)), T(island), n,
+                              T(rows), T(cost))
+    assert np.array_equal(got.numpy(),
+                          _cost_rows_reference(*args, backend="pallas"))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
