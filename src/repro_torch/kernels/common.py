@@ -53,6 +53,17 @@ def require(t: torch.Tensor, name: str,
         raise ValueError(f"{name}: must be contiguous")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an input requires grad: a launch's
+    outputs carry no grad_fn, so autograd would drop every gradient
+    upstream of it without a word.  Inside an autograd.Function's forward
+    grad mode is off, and the launch goes ahead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad outside its autograd.Function; "
+            "the kernel's outputs would carry no gradient")
+
+
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

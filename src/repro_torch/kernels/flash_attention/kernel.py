@@ -16,7 +16,9 @@ Arithmetic, in all three: QK^T in f32 (from f32 operands, or as exact f32
 products of 16-bit ones), masked entries at NEG_INF = -1e30 (not -inf), p
 cast to the input dtype before PV, the sum l clamped at 1e-37, so wholly
 masked rows give finite numbers as the reference's do.  GQA maps kv head =
-q head // (Hq / Hkv).
+q head // (Hq / Hkv).  Like the SSD launch, the launch raises when grad
+mode is on and an input requires grad: a gradient goes through
+`ops.FlashAttention`.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, MMA_TYPES,
-                                        check, lib, on_card, require, stream)
+                                        check, lib, on_card, refuse_grad,
+                                        require, stream)
 from repro_torch.kernels.flash_attention.ops import brick_fwd
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd.mma": 0}
@@ -51,6 +54,7 @@ def _launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    refuse_grad("flash_fwd", q, k, v)
     require(q, "q", FLOAT_TYPES, (B, Sq, Hq, D))
     require(k, "k", q.dtype, (B, Skv, Hkv, D))
     require(v, "v", q.dtype, (B, Skv, Hkv, D))

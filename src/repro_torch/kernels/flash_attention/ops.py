@@ -1,4 +1,4 @@
-"""FlashAttention-2 forward as a brick scan, behind a `torch.autograd.Function`.
+"""FlashAttention-2 as a brick scan, behind a `torch.autograd.Function`.
 
 Counterpart of `repro.kernels.flash_attention.ops`.  The forward walks the
 statically enumerated (q-chunk, kv-chunk) bricks alive under the
@@ -7,8 +7,9 @@ plus one brick.  ``impl="pallas"`` takes the kernel
 (`kernel.flash_fwd`: the CUDA kernel for CUDA tensors, its plain version for
 CPU tensors); any other ``impl`` the brick scan here.
 
-The backward (the brick walk of the reference's ``_flash_bwd``) comes with
-the training slice; serving never calls it.
+The forward saves only (q, k, v, out, lse); the backward (`brick_bwd`, the
+reference's ``_flash_bwd``) re-walks the same brick list in torch ops and
+accumulates dq, dk and dv in f32, for either forward.
 """
 from __future__ import annotations
 
@@ -102,6 +103,71 @@ def brick_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse.reshape(B, nq * cq, Hq)[:, :Sq]
 
 
+def brick_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+              causal: bool = True, window: int = 0, cq: int = 1024,
+              ck: int = 1024, *, f32_scores: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of attention over the live bricks, from the forward's
+    (out, lse (B,Sq,Hq) f32) and dout.  Returns (dq, dk, dv) in the
+    inputs' dtypes, accumulated in f32.  The scores are recomputed as the
+    forward computed them: in q's dtype, or in f32 from f32 operands with
+    ``f32_scores`` (the kernel's); p and ds are cast to the inputs' dtype
+    before their matmuls, as in the reference."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    cq, ck = min(cq, Sq), min(ck, Skv)
+    scale = 1.0 / math.sqrt(D)
+    qp, kp, vp = _pad_seq(q, cq), _pad_seq(k, ck), _pad_seq(v, ck)
+    dop, outp = _pad_seq(dout, cq), _pad_seq(out, cq)
+    nq, nk = qp.shape[1] // cq, kp.shape[1] // ck
+    # the one place where the (B, Sq, Hq) lse takes the brick layout
+    lsec = F.pad(lse.reshape(B, Sq, Hkv, G),
+                 (0, 0, 0, 0, 0, nq * cq - Sq)).reshape(B, nq, cq, Hkv, G)
+    qc = qp.reshape(B, nq, cq, Hkv, G, D)
+    kc = kp.reshape(B, nk, ck, Hkv, D)
+    vc = vp.reshape(B, nk, ck, Hkv, D)
+    doc = dop.reshape(B, nq, cq, Hkv, G, D)
+    # delta = rowsum(dO * O)
+    delta = torch.sum(dop.float() * outp.float(),
+                      dim=-1).reshape(B, nq, cq, Hkv, G)
+    qs, ks = (qc.float(), kc.float()) if f32_scores else (qc, kc)
+    dev = q.device
+    neg = torch.full((), NEG_INF, device=dev)
+
+    dq = [torch.zeros((B, cq, Hkv, G, D), dtype=torch.float32, device=dev)
+          for _ in range(nq)]
+    dk = [torch.zeros((B, ck, Hkv, D), dtype=torch.float32, device=dev)
+          for _ in range(nk)]
+    dv = [torch.zeros((B, ck, Hkv, D), dtype=torch.float32, device=dev)
+          for _ in range(nk)]
+    for i, j in brick_list(nq, nk, cq, ck, causal, window):
+        qi, kj, vj, doi = qc[:, i], kc[:, j], vc[:, j], doc[:, i]
+        s = torch.einsum("bqkgd,bskd->bqkgs", qs[:, i], ks[:, j]).float()
+        s = s * scale
+        qpos = i * cq + torch.arange(cq, device=dev)[:, None]
+        kpos = j * ck + torch.arange(ck, device=dev)[None, :]
+        mask = kpos < Skv
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window:
+            mask = mask & (kpos > qpos - window)
+        s = torch.where(mask[:, None, None, :], s, neg)
+        p = torch.exp(s - lsec[:, i][..., None])          # (B,cq,Hkv,G,ck)
+        dvj = torch.einsum("bqkgs,bqkgd->bskd", p.to(dout.dtype), doi)
+        dp = torch.einsum("bqkgd,bskd->bqkgs", doi, vj).float()
+        ds = p * (dp - delta[:, i][..., None]) * scale
+        dsq = ds.to(q.dtype)
+        dq[i] += torch.einsum("bqkgs,bskd->bqkgd", dsq, kj).float()
+        dk[j] += torch.einsum("bqkgs,bqkgd->bskd", dsq, qi).float()
+        dv[j] += dvj.float()
+    dq_ = torch.stack(dq, dim=1).reshape(B, nq * cq, Hq, D)[:, :Sq]
+    dk_ = torch.stack(dk, dim=1).reshape(B, nk * ck, Hkv, D)[:, :Skv]
+    dv_ = torch.stack(dv, dim=1).reshape(B, nk * ck, Hkv, D)[:, :Skv]
+    return dq_.to(q.dtype), dk_.to(k.dtype), dv_.to(v.dtype)
+
+
 def _flash_fwd(q, k, v, causal, window, cq, ck, impl):
     if impl == "pallas":
         from repro_torch.kernels.flash_attention.kernel import flash_fwd
@@ -110,20 +176,23 @@ def _flash_fwd(q, k, v, causal, window, cq, ck, impl):
 
 
 class FlashAttention(torch.autograd.Function):
-    """out = attention(q, k, v); saves (q, k, v, out, lse) for a backward
-    that the training slice brings."""
+    """out = attention(q, k, v); saves (q, k, v, out, lse), and its
+    backward is `brick_bwd` on them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, cq, ck, impl):
         out, lse = _flash_fwd(q, k, v, causal, window, cq, ck, impl)
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, cq, ck, impl == "pallas")
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError(
-            "the flash attention backward comes with the training slice "
-            "(ROADMAP queue 1, item 8); serving runs the forward only")
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, cq, ck, f32_scores = ctx.args
+        dq, dk, dv = brick_bwd(q, k, v, out, lse, dout.contiguous(), causal,
+                               window, cq, ck, f32_scores=f32_scores)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

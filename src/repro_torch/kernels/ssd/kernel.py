@@ -18,7 +18,9 @@ decay-scaled x of its update to tf32).  f16 stays off the tensor-core
 route because an f16 M overflows above 65504 where the reference's f32 M
 does not.  It adds one to ``LAUNCHES["ssd_scan"]`` where it launches, and
 one to ``LAUNCHES["ssd_scan.mma"]`` too when the launch took the
-tensor-core route; nowhere else.
+tensor-core route; nowhere else.  The launch gives outputs that autograd
+cannot see through, so it raises when grad mode is on and an input
+requires grad: a gradient goes through `kernels.ssd.ops.SSDScan`.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, check, lib,
-                                        on_card, require, stream)
+                                        on_card, refuse_grad, require,
+                                        stream)
 from repro_torch.models.ssm import ssd_scan as chunked_scan
 
 LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan.mma": 0}
@@ -61,6 +64,7 @@ def _launch_ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     Bsz, S, H, Pd = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
+    refuse_grad("ssd_scan", x, dt, A, Bm, Cm)
     require(x, "x", FLOAT_TYPES, (Bsz, S, H, Pd))
     require(dt, "dt", torch.float32, (Bsz, S, H))
     require(A, "A", torch.float32, (H,))

@@ -6,7 +6,9 @@ keyed by the `ParamSpec` paths (``decoder.g0.L5.ssd.wz``,
 nested dicts of tensors.  `params_from_reference` takes such a tree as
 numpy arrays (``jax.device_get`` of the reference's tree) and returns the
 port's, checking every name and shape against a spec tree when one is
-given.
+given.  `state_from_reference` and `state_to_numpy` carry a whole train
+state (``params``, ``opt.m``, ``opt.v``, ``step`` and ``err``) across, in
+both directions, so that both packages can start from one state.
 """
 from __future__ import annotations
 
@@ -20,13 +22,12 @@ from repro_torch.parallel.sharding import _set_path, tree_leaves_with_path
 
 
 def _to_tensor(a) -> torch.Tensor:
-    a = np.asarray(a)
-    if not a.flags.writeable:               # e.g. a view of a jax array
-        a = a.copy()
+    """A tensor holding a copy of ``a``: the port updates train states in
+    place, and that must not reach the caller's arrays."""
+    a = np.array(a, order="C", copy=True)
     if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16
-        return torch.from_numpy(
-            np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a))
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_from_reference(tree: dict, specs: Optional[dict] = None, *,
@@ -51,3 +52,31 @@ def params_from_reference(tree: dict, specs: Optional[dict] = None, *,
     for path, a in leaves.items():
         _set_path(out, path, _to_tensor(a).to(dev))
     return out
+
+
+def state_from_reference(state: dict, cfg=None, *, device="cuda") -> dict:
+    """A train state as nested dicts of numpy arrays (the reference's
+    state through ``jax.device_get``) -> the port's, on ``device``.  With
+    ``cfg``, ``params``, the moments and ``err`` are checked against the
+    model's spec tree."""
+    from repro_torch.models.model import model_param_specs
+    specs = model_param_specs(cfg) if cfg is not None else None
+    out = {"params": params_from_reference(state["params"], specs,
+                                           device=device),
+           "opt": {k: params_from_reference(state["opt"][k], specs,
+                                            device=device)
+                   for k in ("m", "v")},
+           "step": _to_tensor(state["step"]).to(torch.int32).to(
+               resolve_device(device))}
+    if "err" in state:
+        out["err"] = params_from_reference(state["err"], specs,
+                                           device=device)
+    return out
+
+
+def state_to_numpy(state: dict) -> dict:
+    """The port's train state (or any nested dicts of tensors) as nested
+    dicts of numpy arrays on the host, copies of the tensors."""
+    if isinstance(state, dict):
+        return {k: state_to_numpy(v) for k, v in state.items()}
+    return state.detach().to("cpu", copy=True).numpy()

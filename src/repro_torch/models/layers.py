@@ -1,8 +1,8 @@
 """Shared neural building blocks: norms, RoPE (incl. M-RoPE), embeddings,
 the LM head and the SwiGLU MLP.
 
-Counterpart of `repro.models.layers`, mesh-free.  The loss functions come
-with the training slice.
+Counterpart of `repro.models.layers`, mesh-free, with its losses: the
+sequence-chunked `lm_head_loss` and `cross_entropy`.
 """
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import ParamSpec
@@ -101,11 +102,72 @@ def embed_tokens(params: dict, tokens: torch.Tensor,
 def lm_logits(params: dict, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return torch.einsum("bsd,dv->bsv", x, _head_weight(params, cfg))
+
+
+def _head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings and "lm_head" not in params:
-        w = params["embedding"].to(cfg.act_dtype).T
-    else:
-        w = params["lm_head"].to(cfg.act_dtype)
-    return torch.einsum("bsd,dv->bsv", x, w)
+        return params["embedding"].to(cfg.act_dtype).T
+    return params["lm_head"].to(cfg.act_dtype)
+
+
+def _chunk_nll(xs: torch.Tensor, w: torch.Tensor, lbl: torch.Tensor,
+               mk: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the chunk's token NLL, its token count), both f32."""
+    logits = torch.einsum("bsd,dv->bsv", xs, w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lbl.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mk is not None:
+        mkf = mk.float()
+        return torch.sum(nll * mkf), torch.sum(mkf)
+    return torch.sum(nll), torch.tensor(float(nll.numel()),
+                                        device=nll.device)
+
+
+def lm_head_loss(params: dict, x: torch.Tensor, labels: torch.Tensor,
+                 cfg: ModelConfig,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sequence-chunked softmax cross-entropy.
+
+    Chunks of ``cfg.loss_chunk`` positions, each under activation
+    checkpointing, keep the live set to one chunk's (B, c, V) logits
+    instead of the whole sequence's.  The reference's chunk rule is
+    kept: when c does not divide S, c becomes S // (S // c) and the
+    positions past n * c drop out of the mean, as there."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = _head_weight(params, cfg)
+    S = x.shape[1]
+    c = cfg.loss_chunk
+    if not c or S <= c:
+        return cross_entropy(torch.einsum("bsd,dv->bsv", x, w), labels,
+                             mask)
+    if S % c:
+        c = S // (S // c)  # keep chunks equal; S is a power of two in practice
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // c):
+        sl = slice(i * c, (i + 1) * c)
+        t, n = checkpoint(_chunk_nll, x[:, sl], w, labels[:, sl],
+                          None if mask is None else mask[:, sl],
+                          use_reentrant=False)
+        tot = tot + t
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL; logits (B, S, V), labels (B, S) int32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 # --------------------------------------------------------------------------- #

@@ -7,13 +7,17 @@ reference scans it).  Parameters and caches are nested dicts of tensors
 keyed by the reference's `ParamSpec` paths.
 
 `prefill` and `decode_step` update the caches they are given in place and
-return them with the new ``index``.
+return them with the new ``index``.  `loss_fn` is the train objective; in
+train mode with ``cfg.remat == "full"`` each repeat's layers run under
+activation checkpointing (the reference's `jax.checkpoint` of its scan
+body), so the backward recomputes them.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GroupSpec, LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -24,7 +28,10 @@ from repro_torch.parallel.sharding import (ParamSpec, tree_leaves_with_path,
                                            tree_map_specs)
 
 _ENCDEC = ("encoder-decoder models (the encoder and cross attention) come "
-           "with the encoder-decoder slice (ROADMAP queue 1, item 7)")
+           "with the encoder-decoder slice (ROADMAP queue 1, item 4)")
+_REMAT_DOTS = ("remat='dots' (save the matmul outputs, recompute the rest) "
+               "is not ported (ROADMAP queue 2, after parity); use 'full' or "
+               "'none'")
 
 
 # --------------------------------------------------------------------------- #
@@ -216,11 +223,19 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
     """Run all layer groups, repeat by repeat.  Returns (x, aux, caches):
     the caches given, updated in place, or None without caches."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = mode == "train" and cfg.remat != "none"
+    if remat and cfg.remat != "full":
+        raise NotImplementedError(_REMAT_DOTS)
     for gi, g in enumerate(groups):
         gp = params[f"g{gi}"]
         gc = caches[f"g{gi}"] if caches is not None else None
         for r in range(g.repeat):
             p_slice = _index_tree(gp, r)
+            if remat:
+                x, aux = checkpoint(_remat_body(), cfg, g.layers, p_slice, x,
+                                    aux, shared_params, positions, causal,
+                                    use_reentrant=False)
+                continue
             c_slice = _index_tree(gc, r) if gc is not None else None
             for pidx, ls in enumerate(g.layers):
                 key = f"L{pidx}"
@@ -236,6 +251,34 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
                         if new.data_ptr() != dst.data_ptr():
                             dst.copy_(new)
     return x, aux, caches
+
+
+def _remat_body():
+    """`_repeat_body` for one checkpointed repeat: its first call is the
+    forward; a later call is the recompute that the backward triggers,
+    run under a ``remat_recompute`` profiler range so that a profile can
+    tell its kernels from the backward node that unpacked the input."""
+    calls = [0]
+
+    def body(*args):
+        calls[0] += 1
+        if calls[0] == 1:
+            return _repeat_body(*args)
+        with torch.profiler.record_function("remat_recompute"):
+            return _repeat_body(*args)
+    return body
+
+
+def _repeat_body(cfg: ModelConfig, layers, p_slice: dict, x: torch.Tensor,
+                 aux: torch.Tensor, shared_params, positions, causal: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One repeat of a group's layers in train mode (no caches): the unit
+    that activation checkpointing saves the input of and recomputes."""
+    for pidx, ls in enumerate(layers):
+        x, aux, _ = apply_layer(cfg, ls, p_slice[f"L{pidx}"], x, aux,
+                                shared_params=shared_params, mode="train",
+                                positions=positions, causal=causal)
+    return x, aux
 
 
 # --------------------------------------------------------------------------- #
@@ -301,6 +344,18 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         x = x[:, -1:]
     logits = L.lm_logits(params["embed"], x, cfg)
     return logits, aux, new_caches
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict
+            ) -> Tuple[torch.Tensor, dict]:
+    """The train objective: mean token NLL (masked by ``loss_mask`` when
+    the batch has one) plus the router's aux loss.  Returns (loss,
+    {"loss", "nll", "aux"})."""
+    x, aux, _ = backbone(cfg, params, batch, mode="train")
+    nll = L.lm_head_loss(params["embed"], x, batch["labels"], cfg,
+                         batch.get("loss_mask"))
+    loss = nll + cfg.router_aux_coef * aux
+    return loss, {"loss": loss, "nll": nll, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, caches

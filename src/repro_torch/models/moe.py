@@ -27,4 +27,4 @@ def moe_specs(cfg: ModelConfig) -> dict:
 def moe_block(params: dict, x, cfg: ModelConfig):
     raise NotImplementedError(
         "MoE layers come with the MoE slice (models/moe.py, ROADMAP "
-        "queue 1, item 7)")
+        "queue 1, item 4)")

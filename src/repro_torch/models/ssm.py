@@ -4,7 +4,8 @@ Counterpart of `repro.models.ssm`.  Within chunks of length L the output is
 a masked (semiseparable) matmul; across chunks a small recurrence on the
 (H, P, N) state carries context.  `ssd_scan` here is the chunked torch
 version (the ``use_pallas=False`` path); with ``cfg.use_pallas`` the block
-calls the CUDA kernel through `repro_torch.kernels.ssd.ops.ssd`.
+calls the CUDA kernel through `repro_torch.kernels.ssd.ops.ssd` (the
+`SSDScan` autograd Function, whose backward is this chunked scan's).
 """
 from __future__ import annotations
 
@@ -58,13 +59,18 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 def _segsum_exp(a_cs: torch.Tensor) -> torch.Tensor:
     """(..., L) inclusive cumsum -> (..., L, L) with out[..., i, j] =
-    exp(a_cs[i] - a_cs[j]) for i >= j, else 0."""
+    exp(a_cs[i] - a_cs[j]) for i >= j, else 0.
+
+    The upper triangle is masked before the exp, not after it as in the
+    reference (``where(tri, exp(diff), 0)``): there diff > 0 grows with
+    the chunk (~180 at zamba2's 256) and exp overflows to inf, which the
+    forward drops but the backward turns into 0 * inf = NaN.  The values
+    are the same."""
     L = a_cs.shape[-1]
     diff = a_cs[..., :, None] - a_cs[..., None, :]
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool,
                                 device=a_cs.device))
-    return torch.where(tri, torch.exp(diff),
-                       torch.zeros((), device=a_cs.device))
+    return torch.exp(torch.where(tri, diff, float("-inf")))
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

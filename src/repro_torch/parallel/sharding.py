@@ -50,12 +50,14 @@ def tree_map_specs(fn: Callable[[ParamSpec], Any], tree):
     raise TypeError(f"not a spec tree node: {type(tree).__name__}")
 
 
-def tree_leaves_with_path(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(dotted path, leaf) pairs of a nested dict, in sorted-key order."""
+def tree_leaves_with_path(tree, prefix: str = "", sep: str = "."
+                          ) -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) pairs of a nested dict, in sorted-key order, the keys
+    joined by ``sep``."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves_with_path(
-                tree[k], f"{prefix}.{k}" if prefix else str(k))
+                tree[k], f"{prefix}{sep}{k}" if prefix else str(k), sep)
     else:
         yield prefix, tree
 

@@ -12,8 +12,7 @@ prefers short-w buckets when the queue saturates — the volunteer's
 Execution: prompts are fed token by token through the decode step of the
 whole slot batch; finished slots are refilled from the queue (continuous
 batching).  The KV cache is one fixed-size pool tensor per layer, slots
-are rows.  Cold start from the swarm (`from_swarm`) comes with the
-checkpoint slice.
+are rows.  `from_swarm` cold-starts a replica from the checkpoint swarm.
 """
 from __future__ import annotations
 
@@ -28,7 +27,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.swarm_arrays import resolve_device
 from repro_torch.models import model as M
-from repro_torch.parallel.sharding import init_params, tree_leaves_with_path
+from repro_torch.parallel.sharding import (ParamSpec, init_params,
+                                           tree_leaves_with_path)
 from repro_torch.training.train_state import make_decode_step
 
 
@@ -60,6 +60,9 @@ class ServingEngine:
         self.sc = sc
         self.device = resolve_device(device)
         self.params = params
+        # the checkpoint's `extra` dict when the params came from the
+        # swarm (from_swarm); None for directly-constructed engines
+        self.restore_extra: Optional[dict] = None
         self.queue: collections.deque = collections.deque()
         self.active: Dict[int, Request] = {}
         self.slot_req: List[Optional[int]] = [None] * sc.slots
@@ -69,6 +72,32 @@ class ServingEngine:
         self._init_cache()
         self._decode = make_decode_step(cfg)
         self._next_id = 0
+
+    @classmethod
+    def from_swarm(cls, cfg: ModelConfig, template, sc: ServeConfig, *,
+                   agent, app_id: str, workdir=None, mesh=None,
+                   device="cuda") -> "ServingEngine":
+        """Cold-start a replica from the distribution swarm.
+
+        The replica's `agent` leeched the checkpoint Application like any
+        other volunteer; the moment its piece set completes
+        (`app_id in agent.images`) this reassembles the step image,
+        re-hashes its content against the manifest and restores the
+        params into `template`'s structure (tensors or `ParamSpec`s) on
+        ``device``.  Raises if the piece set is still incomplete (the
+        ready gate), and for a mesh: the reference's intra-pod fan-out
+        comes with the meshes slice."""
+        from repro_torch.checkpoint.store import MESH_RESTORE
+        from repro_torch.checkpoint.swarm_restore import restore_from_agent
+        if mesh is not None:
+            raise NotImplementedError(MESH_RESTORE)
+        dev = resolve_device(device)
+        template = _on_device(template, dev)
+        params, extra = restore_from_agent(agent, app_id, template,
+                                           workdir=workdir, device=dev)
+        eng = cls(cfg, params, sc, device=dev)
+        eng.restore_extra = extra
+        return eng
 
     def _init_cache(self):
         tree = M.cache_specs_tree(self.cfg, self.sc.slots, self.sc.max_len)
@@ -192,6 +221,18 @@ class ServingEngine:
         return {b: {"d": self.metrics["d"][b], "p": self.metrics["p"][b],
                     "w": self.metrics["w"][b]}
                 for b in self.metrics["p"]}
+
+
+def _on_device(template, dev: torch.device):
+    """The template with each tensor leaf that lies off ``dev`` replaced
+    by a `ParamSpec` of its shape and dtype, so that the restore lands
+    every leaf on the engine's device."""
+    if isinstance(template, dict):
+        return {k: _on_device(v, dev) for k, v in template.items()}
+    if isinstance(template, torch.Tensor) and template.device != dev:
+        return ParamSpec(tuple(template.shape),
+                         (None,) * template.dim(), template.dtype)
+    return template
 
 
 def _rows(tree, rows: slice):

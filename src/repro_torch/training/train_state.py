@@ -1,17 +1,135 @@
-"""Serve-side step functions.
+"""Train and serve state construction and step functions.
 
-Counterpart of the serving half of `repro.training.train_state`:
-`make_prefill_step` and `make_decode_step` return functions of
-``(params, batch, caches)`` that give ``(next_tok, new_caches)`` exactly as
-the reference's do, with the greedy next token as int32.  The train step
-comes with the training slice.
+Counterpart of `repro.training.train_state`, mesh-free.  The train state
+is nested dicts of tensors: ``{"params", "opt": {"m", "v"}, "step"}``
+(``step`` a 0-d int32 tensor), and ``"err"`` with gradient compression's
+error feedback.  `make_train_step` returns a function of ``(state,
+batch)`` giving ``(new_state, metrics)``; it updates the state's tensors in
+place (`optim.adamw.adamw_update`).  `make_prefill_step` and
+`make_decode_step` return functions of ``(params, batch, caches)`` giving
+``(next_tok, new_caches)`` exactly as the reference's do, with the greedy
+next token as int32.
 """
 from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.swarm_arrays import resolve_device
 from repro_torch.models import model as M
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init_specs,
+                                     adamw_update)
+from repro_torch.parallel.sharding import (ParamSpec, _set_path, init_params,
+                                           tree_leaves_with_path)
+
+
+def train_state_specs(cfg: ModelConfig, opt: Optional[AdamWConfig] = None
+                      ) -> dict:
+    pspecs = M.model_param_specs(cfg)
+    return {
+        "params": pspecs,
+        "opt": adamw_init_specs(pspecs),
+        "step": ParamSpec((), (), torch.int32, init="zeros"),
+    }
+
+
+def init_train_state(seed: int, cfg: ModelConfig, device="cuda") -> dict:
+    """Parameters drawn from ``seed`` on ``device`` ("cuda" by default,
+    "cpu" on request), zero moments, step 0."""
+    specs = train_state_specs(cfg)
+    dev = resolve_device(device)
+    return {"params": init_params(seed, specs["params"], device=dev),
+            "opt": init_params(seed, specs["opt"], device=dev),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict
+                   ) -> Tuple[dict, dict]:
+    """(metrics {"loss", "nll", "aux"}, grads): the gradient of
+    `models.model.loss_fn` with respect to every floating-point leaf of
+    ``params``.  The f32 masters of rank >= 2 are cast to the compute
+    dtype inside autograd, so their grads land in f32 on the masters."""
+    flat = [(path, p.detach().requires_grad_(p.is_floating_point()))
+            for path, p in tree_leaves_with_path(params)]
+    half: dict = {}
+    for path, p in flat:
+        if p.dtype == torch.float32 and p.ndim >= 2:
+            p = p.to(cfg.act_dtype)
+        _set_path(half, path, p)
+    with torch.enable_grad():
+        loss, metrics = M.loss_fn(cfg, half, batch)
+        wrt = [(path, p) for path, p in flat if p.requires_grad]
+        gs = torch.autograd.grad(loss, [p for _, p in wrt],
+                                 allow_unused=True)
+    grads: dict = {}
+    for (path, p), g in zip(wrt, gs):
+        _set_path(grads, path, torch.zeros_like(p) if g is None else g)
+    return {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def _micro_batches(batch: dict, n: int) -> List[dict]:
+    """Batch-major split into ``n`` micro-batches (mrope "positions" are
+    (3, B, S): split on dim 1)."""
+    out: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+    for k, v in batch.items():
+        dim = 1 if k == "positions" else 0
+        for i, part in enumerate(torch.chunk(v, n, dim=dim)):
+            if part.shape[dim] * n != v.shape[dim]:
+                raise ValueError(f"batch {k}: {v.shape[dim]} rows do not "
+                                 f"split into {n} micro-steps")
+            out[i][k] = part
+    return out
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, compress=None):
+    """compress: optional optim.compression.CompressionConfig — applied to
+    gradients (with persistent error-feedback state in the train state)
+    before the optimizer, modelling the cross-pod DCN reduction leg."""
+    def train_step(state, batch):
+        n_micro = max(cfg.micro_steps, 1)
+        if n_micro == 1:
+            metrics, grads = loss_and_grads(cfg, state["params"], batch)
+        else:
+            # gradient accumulation over micro-batches, in f32
+            grads = None
+            nll = aux = 0.0
+            for mb in _micro_batches(batch, n_micro):
+                met, g = loss_and_grads(cfg, state["params"], mb)
+                if grads is None:
+                    grads = {p: x.float() for p, x in
+                             tree_leaves_with_path(g)}
+                else:
+                    for p, x in tree_leaves_with_path(g):
+                        grads[p] = grads[p] + x.float()
+                nll = nll + met["nll"]
+                aux = aux + met["aux"]
+            tree: dict = {}
+            for p, x in grads.items():
+                _set_path(tree, p, x / n_micro)
+            grads = tree
+            nll, aux = nll / n_micro, aux / n_micro
+            metrics = {"loss": nll + cfg.router_aux_coef * aux, "nll": nll,
+                       "aux": aux}
+        err_state = None
+        if compress is not None and compress.scheme != "none":
+            from repro_torch.optim.compression import compress_tree
+            grads, err_state = compress_tree(grads, state.get("err"),
+                                             compress)
+        # a named range, so that a profile of the step can tell the
+        # optimizer's kernels from the backward's
+        with torch.profiler.record_function("adamw_update"):
+            new_params, new_opt, stats = adamw_update(
+                opt_cfg, state["params"], grads, state["opt"],
+                state["step"])
+        metrics.update(stats)
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        if err_state is not None:
+            new_state["err"] = err_state
+        return new_state, metrics
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -109,11 +109,23 @@ def test_flash_kernel_plain_matches_pallas(case, dtype):
     assert torch.equal(out2, out)
 
 
-def test_flash_backward_raises_until_training_slice():
-    q = torch.zeros((1, 8, 2, 8), requires_grad=True)
-    out = flash_attention(q, q.detach(), q.detach(), True, 0, 8, 8, "jnp")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+def test_flash_backward_matches_mha_reference():
+    """Through either forward the flash backward gives `mha_reference`'s
+    gradients (`tests/test_torch_training.py` holds it to `jax.grad`)."""
+    rs = np.random.default_rng(5)
+    ins = [rs.standard_normal((1, 24, 2, 8)).astype(np.float32)
+           for _ in range(3)]
+    want = None
+    for impl in ("jnp", "pallas", "ref"):
+        q, k, v = (torch.from_numpy(a).requires_grad_() for a in ins)
+        out = (port_mha(q, k, v, causal=True) if impl == "ref" else
+               flash_attention(q, k, v, True, 0, 8, 8, impl))
+        grads = torch.autograd.grad(out.sin().sum(), (q, k, v))
+        if want is None:
+            want = grads
+            continue
+        for a, b in zip(grads, want):
+            assert float((a - b).abs().max()) < 2e-5, impl
 
 
 def ssd_inputs(case, seed):

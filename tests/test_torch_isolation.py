@@ -166,6 +166,48 @@ def test_launchers_take_only_cuda_tensors():
     assert sk.LAUNCHES == before
 
 
+def test_training_entry_points_default_to_cuda(tmp_path):
+    """The trainer, the train state, the checkpoint restore onto specs,
+    `from_swarm` and the train launcher run on the card unless the caller
+    asks for the CPU: without a card they raise, and "cpu" runs."""
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.training.train_state import (init_train_state,
+                                                  train_state_specs)
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = reduced_config(get_config("granite-8b")).replace(
+        vocab_size=64, d_model=32, num_heads=4, num_kv_heads=2, head_dim=8,
+        d_ff=64)
+    tc = TrainerConfig(batch=2, seq=8, steps=1, log_every=0)
+    argv = ["--arch", "granite-8b", "--reduced", "--steps", "1", "--batch",
+            "2", "--seq", "8"]
+    store = CheckpointStore(str(tmp_path / "ck"))
+    store.save(0, init_train_state(0, cfg, device="cpu"))
+    specs = train_state_specs(cfg)
+    assert init_train_state(0, cfg, device="cpu")["step"].device.type == \
+        "cpu"
+    assert store.restore(specs, device="cpu")[0]["step"].device.type == "cpu"
+    assert len(launch_train.main(argv + ["--device", "cpu"])) == 1
+    if torch.cuda.is_available():
+        assert Trainer(cfg, AdamWConfig(), tc).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg, AdamWConfig(), tc)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_train_state(0, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        store.restore(specs)
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_train.main(argv)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine.from_swarm(cfg, specs["params"], ServeConfig(),
+                                 agent=None, app_id="a")
+    assert Trainer(cfg, AdamWConfig(), tc, device="cpu").device.type == "cpu"
+
+
 def test_build_without_nvcc_raises(tmp_path):
     """A CUDA-path request with no way to build the library raises: there
     is no fallback to the plain versions."""

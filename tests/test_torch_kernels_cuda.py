@@ -560,3 +560,149 @@ def test_reduced_hybrid_model_on_cuda_matches_cpu(mk):
     for name, t in cc.items():
         assert float((t.float() - cg[name].float()).abs().max()) <= \
             1e-4 * max(1.0, float(t.float().abs().max())), name
+
+
+# ------------------------- the training slice ---------------------------- #
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_ssd_scan_function_grads_on_cuda_match_cpu(mk, seed):
+    """`SSDScan` on the card (the kernel forward, the chunked scan's
+    backward) against the same Function on the CPU (the plain forward),
+    f32 and bf16, through y and the final state; every input's gradient,
+    with the kernel launched once for the forward."""
+    _, ssk = mk
+    from repro_torch.kernels.ssd.ops import ssd
+    rs = np.random.default_rng(700 + seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        B, G_ = int(rs.integers(1, 3)), int(rs.choice([1, 2]))
+        H, P, N = G_ * int(rs.choice([1, 2])), int(rs.choice([16, 64])), 16
+        S, chunk = int(rs.integers(1, 300)), int(rs.choice([32, 64, 256]))
+        x = rs.standard_normal((B, S, H, P)).astype(np.float32)
+        dt = (rs.random((B, S, H)) * 0.5 + 0.01).astype(np.float32)
+        A = -np.exp(rs.standard_normal(H)).astype(np.float32)
+        Bm = rs.standard_normal((B, S, G_, N)).astype(np.float32)
+        Cm = rs.standard_normal((B, S, G_, N)).astype(np.float32)
+        wy = torch.from_numpy(rs.standard_normal((B, S, H, P)).astype(
+            np.float32))
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            ins = [torch.from_numpy(a).to(dev) for a in (x, dt, A, Bm, Cm)]
+            ins = [t.to(dtype) if i in (0, 3, 4) else t
+                   for i, t in enumerate(ins)]
+            ins = [t.requires_grad_() for t in ins]
+            n0 = ssk.LAUNCHES["ssd_scan"]
+            y, fin = ssd(*ins, chunk=chunk, impl="pallas")
+            (torch.sum(y.float() * wy.to(dev)) + fin.sin().sum()).backward()
+            assert ssk.LAUNCHES["ssd_scan"] - n0 == (dev == "cuda")
+            grads[dev] = [t.grad.cpu() for t in ins]
+        tol = 1e-4 if dtype == torch.float32 else 3e-2
+        for name, a, b in zip("x dt A B C".split(), grads["cuda"],
+                              grads["cpu"]):
+            assert a.dtype == b.dtype, name
+            assert _rel_l2(a, b) <= tol, (name, dtype, _rel_l2(a, b))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_flash_backward_on_cuda_matches_cpu(mk, seed):
+    """`FlashAttention` with the kernel forward on the card against the
+    plain forward on the CPU, both through `brick_bwd`: GQA, causal,
+    window and ragged S, f32 and bf16."""
+    fk, _ = mk
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    rs = np.random.default_rng(800 + seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        B, Hkv = int(rs.integers(1, 3)), int(rs.choice([1, 2]))
+        Hq, D = Hkv * int(rs.choice([1, 4])), int(rs.choice([16, 64, 112]))
+        S = int(rs.integers(1, 300))
+        window = int(rs.choice([0, 0, 37]))
+        cq, ck = int(rs.choice([32, 64])), int(rs.choice([32, 128]))
+        qkv = [rs.standard_normal(s).astype(np.float32)
+               for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+        wo = torch.from_numpy(rs.standard_normal((B, S, Hq, D)).astype(
+            np.float32))
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            ins = [torch.from_numpy(a).to(dev).to(dtype).requires_grad_()
+                   for a in qkv]
+            n0 = fk.LAUNCHES["flash_fwd"]
+            out = flash_attention(*ins, True, window, cq, ck, "pallas")
+            torch.sum(out.float() * wo.to(dev)).backward()
+            assert fk.LAUNCHES["flash_fwd"] - n0 == (dev == "cuda")
+            grads[dev] = [t.grad.cpu() for t in ins]
+        tol = 1e-4 if dtype == torch.float32 else 3e-2
+        for name, a, b in zip("qkv", grads["cuda"], grads["cpu"]):
+            assert a.dtype == dtype, name
+            assert _rel_l2(a, b) <= tol, (name, dtype, _rel_l2(a, b))
+
+
+def test_kernel_launches_refuse_grad_outside_their_function(mk):
+    """A launch on inputs that require grad, with grad mode on, would give
+    outputs with no grad_fn: it raises, and launches nothing."""
+    fk, ssk = mk
+    x = torch.randn(1, 64, 2, 16, device="cuda", requires_grad=True)
+    dt = torch.rand(1, 64, 2, device="cuda")
+    A = -torch.rand(2, device="cuda")
+    Bm = torch.randn(1, 64, 1, 16, device="cuda")
+    n0 = dict(ssk.LAUNCHES)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ssk.ssd_scan(x, dt, A, Bm, Bm.clone(), chunk=32)
+    q = torch.randn(1, 64, 2, 16, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fk.flash_fwd(q, q.detach(), q.detach())
+    assert ssk.LAUNCHES == n0
+    with torch.no_grad():
+        ssk.ssd_scan(x, dt, A, Bm, Bm.clone(), chunk=32)
+    assert ssk.LAUNCHES["ssd_scan"] == n0["ssd_scan"] + 1
+
+
+def test_reduced_train_step_on_cuda_matches_cpu(mk):
+    """A reduced zamba2 train step (f32, the kernels, remat "full") on the
+    card against the same step on the CPU: loss, every gradient (relative
+    L2, 1e-3: twenty times what one ulp of the weights moves them on the
+    CPU) and the kernels' launches, forward and recompute."""
+    fk, ssk = mk
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.parallel.sharding import (init_params_numpy,
+                                               tree_leaves_with_path)
+    from repro_torch.training.train_state import loss_and_grads
+    cfg = reduced_config(get_config("zamba2-7b")).replace(
+        dtype="float32", use_pallas=True, attn_impl="flash", remat="full",
+        loss_chunk=16)
+    specs = M.model_param_specs(cfg)
+    tree = init_params_numpy(0, specs)
+    # the shared attention at a fan-in of d_model (chip_smoke.py's
+    # condition_attention): with the reference's rank-3 fan-in, one ulp
+    # of the weights moves this model's gradients ~2e-3 (L2), the bound
+    a = tree["shared_attn"]["attn"]
+    for name in ("wq", "wk", "wv"):
+        a[name] *= np.float32((cfg.shared_attn_heads / cfg.d_model) ** 0.5)
+    a["wo"] *= np.float32((1.0 / cfg.shared_attn_heads) ** 0.5)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                             (2, 65)).astype(np.int32)
+    n_ssd = sum(g.repeat * len(g.layers) for g in cfg.groups)
+    n_attn = sum(g.repeat * sum(ls.shared_attn for ls in g.layers)
+                 for g in cfg.groups)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = params_from_reference(tree, specs, device=dev)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+        n0 = (fk.LAUNCHES["flash_fwd"], ssk.LAUNCHES["ssd_scan"])
+        m, g = loss_and_grads(cfg, params, batch)
+        launched = (fk.LAUNCHES["flash_fwd"] - n0[0],
+                    ssk.LAUNCHES["ssd_scan"] - n0[1])
+        assert launched == ((2 * n_attn, 2 * n_ssd) if dev == "cuda"
+                            else (0, 0))
+        out[dev] = (float(m["loss"]), {p: x.cpu() for p, x in
+                                       tree_leaves_with_path(g)})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lc - lg) <= 1e-5 * abs(lc)
+    for p, a in gc.items():
+        assert float(gg[p].norm()) > 0 or float(a.norm()) == 0, p
+        assert _rel_l2(gg[p], a) <= 1e-3, (p, _rel_l2(gg[p], a))
