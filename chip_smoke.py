@@ -70,14 +70,31 @@
    two replicas through the scalar protocol, and cold-started on the
    card by `ServingEngine.from_swarm`, bit-equal leaves and
    `reference_serve.json`'s tokens;
-5. prints the per-kernel JSON line (each row with its train-path
-   launches), the card's name and power limit, and as the last line
-   `{"ok": true, "device": {...}}`.
+5. MoE and encoder-decoder slice: `flash_fwd` at qwen3-moe's shape (GQA
+   32:4, D=128, causal) and seamless's encoder shape (16 heads, D=64, no
+   mask), bf16 on `.mma`, against its plain version, timed beside
+   `scaled_dot_product_attention` (in step 3's kernel phase);
+   qwen3-moe-30b-a3b at full width cut to 2 layers in f32 against
+   `src/repro_torch/reference_serve_moe.json` (tokens, logits, and each
+   MoE call's expert counts and capacity drops), and its `ServingEngine`
+   against a full-forward greedy decode; qwen3-moe-30b-a3b at full width
+   and depth (48 layers, 30.5e9 params) in bf16, B=4 S=2048 prefill and 32
+   decode steps with 48 `.mma` flash launches a prefill, a profile by
+   class (expert GEMMs, dispatch and combine glue, attention projections,
+   `flash_fwd`, elementwise), the idle share, the host syncs of a decode
+   step, and every layer through both routes; seamless-m4t-medium whole
+   in f32 against `src/repro_torch/reference_serve_encdec.json` (1280
+   encoder frames, 320 target tokens, 8 steps), then in bf16 (B=4, 2048
+   frames, 512 target tokens, 32 steps) with the same measurements;
+6. prints the per-kernel JSON line (each row with its launches on the
+   serve, MoE, enc-dec and train paths), the card's name and power limit,
+   and as the last line `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero without the last line.  The protocol iterates
 sets of node names, so the script re-executes itself under
 PYTHONHASHSEED=0, the seed the expected values were taken under.
 """
+import contextlib
 import functools
 import json
 import math
@@ -734,14 +751,19 @@ def model_kernel_phase(torch):
         records.setdefault(name, []).append(
             {"case": case, "max_abs_err": err})
         log(f"[kernel] {name} {case}: {what} max abs err {err:.3e} "
-            f"(tolerance {tol:.0e}{' of max ' + f'{scale:.3f}' if relative else ''})")
+            f"(tolerance {tol:.3g}{' of max ' + f'{scale:.3f}' if relative else ''})")
 
     def timed(name, kernel, v1, plain, n_bytes, n_ops, peak, library=None):
         """Device ms of the kernel and of its CUDA-core version v1, in
-        turns (v1, v2, v2, v1), each the mean of its two turns."""
+        turns (v1, v2, v2, v1), each the mean of its two turns (the kernel
+        alone, twice, where ``v1`` is None)."""
         turns = [device_ms(f, reps=10, inner=3)
-                 for f in (v1, kernel, kernel, v1)]
-        ms, v1_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+                 for f in ((kernel,) * 2 if v1 is None
+                           else (v1, kernel, kernel, v1))]
+        if v1 is None:
+            ms, v1_ms = sum(turns) / 2, None
+        else:
+            ms, v1_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         ms_call = call_ms(kernel, reps=10)
         plain_ms = call_ms(plain, reps=5)
         lib_ms = device_ms(library, reps=10, inner=3) if library else None
@@ -753,9 +775,10 @@ def model_kernel_phase(torch):
         rec.update(ms=ms, v1_ms=v1_ms, call_ms=ms_call, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                    bytes=n_bytes, ops=n_ops)
-        log(f"[kernel] {name} {rec['case']}: ms={ms:.4f} (turns v1 v2 v2 v1 "
+        log(f"[kernel] {name} {rec['case']}: ms={ms:.4f} (turns "
+            f"{'v2 v2' if v1 is None else 'v1 v2 v2 v1'} "
             f"{' '.join(f'{x:.4f}' for x in turns)}; one call as issued "
-            f"{ms_call:.4f}) v1_ms={v1_ms:.4f} plain_ms={plain_ms:.3f} "
+            f"{ms_call:.4f}) v1_ms={v1_ms} plain_ms={plain_ms:.3f} "
             f"bytes={n_bytes} "
             f"ops={n_ops} bound_ms={b_ms:.4f} ({b_by})"
             + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""))
@@ -796,6 +819,34 @@ def model_kernel_phase(torch):
     check("flash_fwd", f"B=2 S={S} H={H} D={D} causal bf16 (train step)",
           out, want, 2e-2, "out")
     del q, k, v, out, want
+    # the MoE and enc-dec slice's shapes: qwen3-moe's decoder (GQA 32:4,
+    # D=128, causal) and seamless's encoder (16 heads, D=64, no mask)
+    for Hq, Hkv, D, causal, what in ((32, 4, 128, True, "qwen3-moe"),
+                                     (16, 16, 64, False, "seamless enc")):
+        q = up((B, S, Hq, D), torch.bfloat16)
+        k, v = (up((B, S, Hkv, D), torch.bfloat16) for _ in range(2))
+        n0 = dict(fk.LAUNCHES)
+        out, lse = fk.flash_fwd(q, k, v, causal=causal)
+        if fk.LAUNCHES["flash_fwd.mma"] != n0["flash_fwd.mma"] + 1:
+            fail(f"flash_fwd at {what}'s shape did not take the .mma route")
+        want, wlse = fk.flash_fwd_plain(q, k, v, causal=causal)
+        case = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                f"{'causal' if causal else 'bidirectional'} bf16 ({what})")
+        # one bf16 ulp of the largest value is 2^-7 = 7.8e-3 of it: out
+        # within 1e-2 of max |want| (|out| is ~0.04 without a mask over
+        # 2048 keys), and never more than 2e-2
+        check("flash_fwd", case, out, want,
+              min(2e-2, 1e-2 * float(want.float().abs().max())), "out")
+        check("flash_fwd", case, lse, wlse, 2e-2, "lse")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        timed("flash_fwd",
+              lambda: fk.flash_fwd(q, k, v, causal=causal), None,
+              lambda: fk.flash_fwd_plain(q, k, v, causal=causal),
+              nbytes(q, k, v, out) + lse.numel() * 4,
+              4 * B * Hq * D * live_pairs(S, S, causal, 0), BF16_OPS_PER_S,
+              library=lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv))
+        del q, k, v, qt, kt, vt, out, lse, want, wlse
 
     # ---- ssd_scan -------------------------------------------------------- #
     def ssd_inputs(B, S, H, P, G, N, dtype):
@@ -883,26 +934,29 @@ def layer_counts(cfg):
 
 
 def serve_reference_config(ref):
-    """The model `reference_serve.json` was taken on: zamba2-7b at full
-    width, cut to its groups, in its dtype, with the kernels."""
+    """The model a `reference_serve*.json` was taken on: its architecture
+    at full width, cut to its groups (when it names any), in its dtype,
+    with the kernels."""
     from repro_torch.configs.base import GroupSpec, LayerSpec, get_config
-    groups = tuple(GroupSpec(tuple(LayerSpec(*ls) for ls in layers), r)
-                   for layers, r in ref["groups"])
-    return get_config(ref["arch"]).replace(dtype=ref["dtype"],
-                                           use_pallas=True, groups=groups)
+    cfg = get_config(ref["arch"]).replace(dtype=ref["dtype"],
+                                          use_pallas=True)
+    if ref["groups"] is None:
+        return cfg
+    return cfg.replace(groups=tuple(
+        GroupSpec(tuple(LayerSpec(*ls) for ls in layers), r)
+        for layers, r in ref["groups"]))
 
 
-def serve_reference_phase(torch, device="cuda"):
-    """zamba2-7b at full width, cut to 7 layers, f32 with the kernels,
-    against the reference package's prefill and decode logits."""
+def reference_params(torch, ref, cfg, device):
+    """The weights of ``ref["seed"]`` drawn with numpy as the reference's
+    writer drew them (each leaf's sum of |w| checked against the file),
+    on ``device``, with the attention scaled as the writer scaled it where
+    the file says ``attention_scaled``."""
     import numpy as np
     from repro_torch.models import model as M
     from repro_torch.models.convert import params_from_reference
-    from repro_torch.parallel.sharding import (init_params,
-                                               init_params_numpy,
+    from repro_torch.parallel.sharding import (init_params_numpy,
                                                tree_leaves_with_path)
-    ref = json.loads(SERVE_FILE.read_text())
-    cfg = serve_reference_config(ref)
     specs = M.model_param_specs(cfg)
     t0 = time.perf_counter()
     tree = init_params_numpy(ref["seed"], specs)
@@ -914,22 +968,31 @@ def serve_reference_phase(torch, device="cuda"):
             fail(f"weights drawn here differ from the reference's: {path}")
     params = params_from_reference(tree, specs, device=device)
     del tree
-    log(f"[serve-ref] {ref['arch']} {len(ref['groups'])} groups, "
-        f"{M.count_params(cfg)} params drawn and loaded in "
-        f"{time.perf_counter() - t0:.1f}s")
+    if ref.get("attention_scaled"):
+        condition_attention(params)
+    log(f"[serve-ref] {ref['arch']}: {M.count_params(cfg)} params drawn "
+        f"and loaded in {time.perf_counter() - t0:.1f}s"
+        f"{' (attention scaled)' if ref.get('attention_scaled') else ''}")
+    return params
+
+
+def reference_steps_check(torch, ref, cfg, params, batch, src_len, device,
+                          what):
+    """Prefill ``batch`` and greedy-decode ``ref["decode_steps"]`` steps in
+    ``cfg``; each step's token equal to the file's and its logits at the
+    file's indices within its tolerance of max|logit|.  Returns the worst
+    error."""
+    import numpy as np
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params
     n_prompt, n_dec = len(ref["prompt"]), ref["decode_steps"]
-    caches = init_params(0, M.cache_specs_tree(cfg, 1, n_prompt + n_dec),
+    caches = init_params(0, M.cache_specs_tree(cfg, 1, n_prompt + n_dec,
+                                               src_len=src_len),
                          device=device)
     idx = torch.tensor(ref["logit_index"], device=device)
-    tol = ref["tolerance"]
-    reset_model_launches()
-    t0 = time.perf_counter()
     worst = 0.0
     with torch.no_grad():
-        logits, caches = M.prefill(
-            cfg, params, {"tokens": torch.tensor([ref["prompt"]],
-                                                 dtype=torch.int32,
-                                                 device=device)}, caches)
+        logits, caches = M.prefill(cfg, params, batch, caches)
         for i, step in enumerate(ref["steps"]):
             lg = logits[0].float()
             tok = int(torch.argmax(lg))
@@ -938,18 +1001,33 @@ def serve_reference_phase(torch, device="cuda"):
                                       - np.asarray(step["values"]))))
             rel = max(err, abs(max_abs - step["max_abs"])) / step["max_abs"]
             worst = max(worst, rel)
-            log(f"[serve-ref] step {i}: token {tok} (reference "
-                f"{step['token']}) max|logit| {max_abs:.5f} (reference "
-                f"{step['max_abs']:.5f}) err {rel:.2e} of max|logit|")
-            if tok != step["token"] or rel > tol:
-                fail(f"7-layer zamba2 step {i} differs from "
-                     "reference_serve.json")
+            log(f"[{what}] step {i}: token {tok} (reference {step['token']}) "
+                f"max|logit| {max_abs:.5f} (reference {step['max_abs']:.5f})"
+                f" err {rel:.2e} of max|logit|")
+            if tok != step["token"] or rel > ref["tolerance"]:
+                fail(f"{what} step {i} differs from the reference's")
             if i == n_dec:
                 break
             logits, caches = M.decode_step(
                 cfg, params, {"tokens": torch.tensor(
                     [[step["token"]]], dtype=torch.int32, device=device)},
                 caches)
+    return worst
+
+
+def serve_reference_phase(torch, device="cuda"):
+    """zamba2-7b at full width, cut to 7 layers, f32 with the kernels,
+    against the reference package's prefill and decode logits."""
+    ref = json.loads(SERVE_FILE.read_text())
+    cfg = serve_reference_config(ref)
+    params = reference_params(torch, ref, cfg, device)
+    tol = ref["tolerance"]
+    reset_model_launches()
+    t0 = time.perf_counter()
+    worst = reference_steps_check(
+        torch, ref, cfg, params, {"tokens": torch.tensor(
+            [ref["prompt"]], dtype=torch.int32, device=device)}, 0, device,
+        "serve-ref")
     launched = model_launches()
     n_ssd, n_attn = layer_counts(cfg)
     # f32: every launch on the CUDA-core kernels
@@ -1020,19 +1098,26 @@ def profile_step(torch, what, fn):
     return kernels
 
 
-def condition_attention(cfg, params):
-    """Scale the shared attention's projections to a fan-in of d_model for
-    wq/wk/wv and of heads*head_dim for wo.  The reference's init rule takes
-    shape[-2] of a rank-3 weight as its fan-in, the head count here, so
-    q/k/v come out ~10x too large, the softmax saturates and the random
-    model amplifies any rounding difference ~10x per attention
-    application (13 of them): no two implementations then agree end to
-    end.  Returns the same tree, scaled in place."""
-    a = params["shared_attn"]["attn"]
-    heads = cfg.shared_attn_heads or cfg.num_heads
-    for name in ("wq", "wk", "wv"):
-        a[name].mul_((heads / cfg.d_model) ** 0.5)
-    a["wo"].mul_((1.0 / heads) ** 0.5)
+def condition_attention(params):
+    """Scale every attention block's projections (each dict of the tree
+    holding wq/wk/wv/wo: self, shared and cross attention) to a fan-in of
+    d_model for wq/wk/wv and of heads*head_dim for wo.  The reference's
+    init rule takes shape[-2] of a rank-3 weight as its fan-in: the head
+    count of wq/wk/wv (qwen3-moe's wv comes out ~22x too large) and the
+    head_dim of wo (~5.7x), so the softmax saturates and a random model
+    amplifies any rounding difference at each attention layer: no two
+    implementations then agree end to end.  Returns the same tree, scaled
+    in place."""
+    if not isinstance(params, dict):
+        return params
+    if {"wq", "wk", "wv", "wo"} <= params.keys():
+        for name in ("wq", "wk", "wv"):
+            w = params[name]          # (..., d_model, heads, head_dim)
+            w.mul_((w.shape[-2] / w.shape[-3]) ** 0.5)
+        params["wo"].mul_((1.0 / params["wo"].shape[-3]) ** 0.5)
+        return params
+    for sub in params.values():
+        condition_attention(sub)
     return params
 
 
@@ -1232,7 +1317,9 @@ def greedy_decode(torch, cfg, params, prompt, n, device):
 
 def engine_phase(torch, params, cfg, device="cuda", seed=11, n_req=4,
                  max_new=8):
-    """The port's ServingEngine on zamba2-7b at full depth in f32: each
+    """The port's ServingEngine on a model in f32 (zamba2-7b at full depth;
+    qwen3-moe-30b-a3b at 2 layers, where every prompt and its generation
+    stay within 512 tokens, so the MoE capacity is dropless in both): each
     request's tokens against a full-forward greedy decode on the card."""
     import numpy as np
     from repro_torch.serving.engine import ServeConfig, ServingEngine
@@ -1260,7 +1347,7 @@ def engine_phase(torch, params, cfg, device="cuda", seed=11, n_req=4,
                  f"full-forward greedy {ref}")
     units = {b: {"p": u["p"], "d": u["d"]}
              for b, u in eng.published_units().items()}
-    log(f"[engine] zamba2-7b f32: {n_req} requests (prompts "
+    log(f"[engine] {cfg.name} f32: {n_req} requests (prompts "
         f"{[len(p) for p in prompts]}), {ticks} ticks in {wall:.2f}s; every "
         f"request equals its full-forward greedy decode; published "
         f"{json.dumps(units)}")
@@ -1298,7 +1385,7 @@ def serve_full_phases(torch, cfg=None, device="cuda", B=4, S=2048,
         f"max|logit|, greedy tokens agree "
         f"{float((lk.argmax(-1) == lp.argmax(-1)).float().mean()):.3f}")
     del lk, lp
-    condition_attention(cfg, params)
+    condition_attention(params)
     log("[full] shared attention scaled to a fan-in of d_model")
     t0 = time.perf_counter()
     launches = full_model_phase(torch, params, cfg, prompts, device=device,
@@ -1333,25 +1420,25 @@ def kernel_class(name):
     return "elementwise"
 
 
-def range_class(evt):
-    """The class of the innermost TRAIN_RANGES range around a CPU op, or
+def range_class(evt, ranges=TRAIN_RANGES):
+    """The class of the innermost of ``ranges`` around a CPU op, or
     None."""
     while evt is not None:
-        for cls, tag in TRAIN_RANGES:
+        for cls, tag in ranges:
             if evt.name.endswith(tag):
                 return cls
         evt = evt.cpu_parent
     return None
 
 
-def profile_train_step(torch, fn, step_ms):
-    """Device ms of one train step by class: the flash and SSD kernels
-    (by name); then every other kernel by the innermost range that
-    launched it: the remat recompute, the SSD backward's and the flash
-    backward's torch ops (their autograd nodes), the optimizer (its
-    range); the rest as GEMMs or elementwise.  The idle share is taken
-    against ``step_ms``, the step's time without the profiler (which
-    slows the host's launches)."""
+def profile_ranges(torch, what, fn, unprofiled_ms, ranges):
+    """Device ms of one call by class: the flash and SSD kernels by name;
+    every other kernel by the innermost of ``ranges`` ((class, CPU range
+    name) pairs: autograd nodes, `record_function` ranges) that launched
+    it, as "{class}.gemm" and "{class}.elementwise"; the rest as "gemm" or
+    "elementwise".  The idle share is taken against ``unprofiled_ms``, the
+    call's time without the profiler (which slows the host's launches).
+    A range that linked no kernel is logged as not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1373,36 +1460,39 @@ def profile_train_step(torch, fn, step_ms):
         total[kernel_class(evt.name)] += ms
         names[evt.name] = names.get(evt.name, 0.0) + ms
         n += 1
-    inside = {cls: dict.fromkeys(total, 0.0) for cls, _ in TRAIN_RANGES}
+    inside = {cls: dict.fromkeys(total, 0.0) for cls, _ in ranges}
     for evt in events:
         if evt.device_type != DeviceType.CPU or not evt.kernels:
             continue
-        cls = range_class(evt)
+        cls = range_class(evt, ranges)
         if cls is not None:
             for k in evt.kernels:
                 inside[cls][kernel_class(k.name)] += k.duration / 1e3
     classes = {"flash_fwd": total["flash_fwd"],
                "ssd_scan": total["ssd_scan"]}
     for cls, part in inside.items():
-        classes[cls] = part["gemm"] + part["elementwise"]
-    for cls in ("gemm", "elementwise"):
-        classes[cls] = total[cls] - sum(p[cls] for p in inside.values())
+        for kind in ("gemm", "elementwise"):
+            classes[f"{cls}.{kind}"] = part[kind]
+    for kind in ("gemm", "elementwise"):
+        classes[kind] = total[kind] - sum(p[kind] for p in inside.values())
     busy = sum(total.values())
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[train] profile of one bf16 step: wall_ms={wall:.1f} (under the "
-        f"profiler) kernels={n} device_ms={busy:.1f} by class "
-        f"{json.dumps({k: round(v, 3) for k, v in classes.items()})}; the "
-        f"recompute's own flash/SSD kernels "
-        f"{json.dumps({k: round(inside['recompute'][k], 3) for k in ('flash_fwd', 'ssd_scan')})} "
-        f"(in their kernel classes); idle share against the unprofiled "
-        f"step ({step_ms:.1f} ms) {max(0.0, 1 - busy / step_ms):.3f}; top "
-        f"{json.dumps([(k[:60], round(v, 3)) for k, v in top])}")
+    own = {cls: {k: round(part[k], 3) for k in ("flash_fwd", "ssd_scan")}
+           for cls, part in inside.items()
+           if part["flash_fwd"] or part["ssd_scan"]}
+    log(f"[profile] {what}: wall_ms={wall:.1f} (under the profiler) "
+        f"kernels={n} device_ms={busy:.1f} by class "
+        f"{json.dumps({k: round(v, 3) for k, v in classes.items()})}; "
+        f"flash/SSD kernels inside the ranges {json.dumps(own)} (in their "
+        f"kernel classes); idle share against the unprofiled "
+        f"{unprofiled_ms:.1f} ms {max(0.0, 1 - busy / unprofiled_ms):.3f}; "
+        f"top {json.dumps([(k[:60], round(v, 3)) for k, v in top])}")
     for cls, part in inside.items():
         if not sum(part.values()):
-            log(f"[train] the profile linked no kernel to {cls}'s range: "
-                f"its class reads 0 (not measured)")
+            log(f"[profile] {what}: the profile linked no kernel to {cls}'s "
+                f"range: its class reads 0 (not measured)")
     return dict(classes, device_ms=busy,
-                idle_share=max(0.0, 1 - busy / step_ms))
+                idle_share=max(0.0, 1 - busy / unprofiled_ms))
 
 
 def train_groups():
@@ -1630,7 +1720,7 @@ def train_step_phase(torch, cfg=None, device="cuda", B=2, S=2048, seed=17,
     tree = init_params_numpy(seed, specs)
     params = params_from_reference(tree, specs, device=device)
     del tree
-    condition_attention(cfg, params)
+    condition_attention(params)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
@@ -1687,8 +1777,9 @@ def train_step_phase(torch, cfg=None, device="cuda", B=2, S=2048, seed=17,
         f"of the bf16 dense peak); peak memory {peak_gb:.2f} GiB; losses "
         f"{json.dumps([round(x, 5) for x in losses])}; launches over the "
         f"{n_steps} steps {json.dumps(launches)}")
-    classes = (profile_train_step(torch, lambda: step(state, batch),
-                                  med * 1e3) if device == "cuda" else {})
+    classes = (profile_ranges(torch, "one bf16 train step",
+                              lambda: step(state, batch), med * 1e3,
+                              TRAIN_RANGES) if device == "cuda" else {})
     return {"step_s": med, "tokens_per_s": B * S / med, "peak_gib": peak_gb,
             "launches": launches, "per_step": {k: v // n_steps for k, v in
                                                launches.items()},
@@ -1871,6 +1962,471 @@ def swarm_restore_phase(torch, cfg=None, want=None, device="cuda",
     shutil.rmtree(root, ignore_errors=True)
 
 
+# =============== MoE and encoder-decoder slice =========================== #
+MOE_FILE = SRC / "repro_torch" / "reference_serve_moe.json"
+ENCDEC_FILE = SRC / "repro_torch" / "reference_serve_encdec.json"
+# CPU ranges (named by `hooked`, in `slice_ranges`) that the profile
+# charges kernels to: the MoE router, the whole MoE block, cross attention
+# and its k/v projection
+MOE_RANGES = (("router", "moe_router"), ("moe", "moe_block"))
+CROSS_RANGES = (("cross", "cross_attention"),)
+
+
+@contextlib.contextmanager
+def hooked(module, name, after=None, tag=None):
+    """``module.name`` wrapped for the block: run under a profiler range
+    ``tag``, and ``after(args, result)`` called on each call."""
+    import torch
+    inner = getattr(module, name)
+
+    def call(*args, **kw):
+        if tag is None:
+            out = inner(*args, **kw)
+        else:
+            with torch.profiler.record_function(tag):
+                out = inner(*args, **kw)
+        if after is not None:
+            after(args, out)
+        return out
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+@contextlib.contextmanager
+def slice_ranges():
+    """The profiler ranges of MOE_RANGES and CROSS_RANGES around the
+    port's functions."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import moe as moe_lib
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(hooked(moe_lib, "_route", tag="moe_router"))
+        stack.enter_context(hooked(moe_lib, "moe_block", tag="moe_block"))
+        for name in ("cross_attention_block", "encode_cross_kv"):
+            stack.enter_context(hooked(attn_lib, name,
+                                       tag="cross_attention"))
+        yield
+
+
+def decode_syncs(torch, fn):
+    """Host syncs of one call: the warnings of
+    `torch.cuda.set_sync_debug_mode("warn")`."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in seen
+            if "called a synchronizing" in str(w.message)]
+
+
+def moe_reference_phase(torch, device="cuda"):
+    """qwen3-moe-30b-a3b at full width, 2 layers, f32 with the kernels,
+    against `reference_serve_moe.json`: tokens, logits, and every MoE
+    call's per-expert counts and dropped assignments (the 1280-token
+    prefill is past 512 tokens: the capacity rule drops).  Returns (cfg,
+    params) for the engine check."""
+    import numpy as np
+    from repro_torch.models import moe as moe_lib
+    ref = json.loads(MOE_FILE.read_text())
+    cfg = serve_reference_config(ref)
+    params = reference_params(torch, ref, cfg, device)
+    calls = []
+
+    def record(args, out):
+        calls.append((args[2].cpu().numpy(), args[7]))   # experts, capacity
+    reset_model_launches()
+    t0 = time.perf_counter()
+    with hooked(moe_lib, "_dispatch_compute", after=record):
+        worst = reference_steps_check(
+            torch, ref, cfg, params, {"tokens": torch.tensor(
+                [ref["prompt"]], dtype=torch.int32, device=device)}, 0,
+            device, "moe-ref")
+    launched = model_launches()
+    n_attn = sum(g.repeat * len(g.layers) for g in cfg.groups)
+    want = (route_counts(n_attn, 0, 0, 0) if device == "cuda"
+            else route_counts(0, 0, 0, 0))     # f32: the CUDA-core kernel
+    if launched != want:
+        fail(f"2-layer f32 qwen3-moe launched {launched}, expected {want}")
+    if len(calls) != len(ref["routing"]):
+        fail(f"{len(calls)} MoE calls, the reference made "
+             f"{len(ref['routing'])}")
+    drops = []
+    for i, ((experts, cap), want) in enumerate(zip(calls, ref["routing"])):
+        counts = np.bincount(experts.reshape(-1), minlength=cfg.num_experts)
+        dropped = int(np.maximum(counts - cap, 0).sum())
+        drops.append(dropped)
+        if (cap, counts.tolist(), dropped) != (want["capacity"],
+                                               want["counts"],
+                                               want["dropped"]):
+            if "experts" in want:
+                flipped = np.nonzero((np.sort(experts, axis=1)
+                                      != np.asarray(want["experts"])
+                                      ).any(axis=1))[0]
+                log(f"[moe-ref] MoE call {i}: tokens whose experts differ "
+                    f"from the reference's: {flipped.tolist()[:50]} "
+                    f"({len(flipped)} of {len(experts)})")
+            fail(f"MoE call {i}: capacity {cap}, dropped {dropped}, counts "
+                 f"differ from the reference's (capacity "
+                 f"{want['capacity']}, dropped {want['dropped']})")
+    log(f"[moe-ref] matches reference_serve_moe.json (worst {worst:.2e} of "
+        f"max|logit| <= {ref['tolerance']}; {len(calls)} MoE calls with "
+        f"equal expert counts, prefill drops {drops[:n_attn]} at capacity "
+        f"{calls[0][1]}) in {time.perf_counter() - t0:.1f}s, launches "
+        f"{json.dumps(launched)}")
+    return cfg, params
+
+
+def encdec_reference_phase(torch, device="cuda"):
+    """seamless-m4t-medium whole (12 + 12 layers), f32 with the kernels,
+    against `reference_serve_encdec.json`: 1280 encoder frames (the
+    encoder takes flash), a 320-token target prompt, 8 decode steps."""
+    import numpy as np
+    ref = json.loads(ENCDEC_FILE.read_text())
+    cfg = serve_reference_config(ref)
+    params = reference_params(torch, ref, cfg, device)
+    rng = np.random.default_rng(ref["seed"])
+    prompt = rng.integers(0, cfg.vocab_size, (1, len(ref["prompt"])))
+    idx = rng.choice(cfg.vocab_size, len(ref["logit_index"]), replace=False)
+    frames = rng.standard_normal((1, ref["src_len"], cfg.d_model),
+                                 dtype=np.float32)
+    got = float(np.sum(np.abs(frames), dtype=np.float64))
+    if (prompt[0].tolist() != ref["prompt"]
+            or sorted(idx.tolist()) != ref["logit_index"]
+            or abs(got - ref["frames_abs_sum"]) > 1e-9 * got):
+        fail("the frames drawn here differ from the reference's")
+    reset_model_launches()
+    t0 = time.perf_counter()
+    worst = reference_steps_check(
+        torch, ref, cfg, params,
+        {"tokens": torch.tensor(prompt, dtype=torch.int32, device=device),
+         "enc_embeds": torch.from_numpy(frames).to(device)},
+        ref["src_len"], device, "encdec-ref")
+    launched = model_launches()
+    n_enc = sum(g.repeat * len(g.layers) for g in cfg.encoder_groups)
+    want = (route_counts(n_enc, 0, 0, 0) if device == "cuda"
+            else route_counts(0, 0, 0, 0))
+    if launched != want:
+        fail(f"f32 seamless launched {launched}, expected {want}")
+    log(f"[encdec-ref] matches reference_serve_encdec.json (worst "
+        f"{worst:.2e} of max|logit| <= {ref['tolerance']}) in "
+        f"{time.perf_counter() - t0:.1f}s, launches {json.dumps(launched)}")
+    del params
+
+
+def serve_run(torch, cfg, params, batch, n_decode, src_len, want_flash,
+              device, what, ranges):
+    """A bf16 prefill of ``batch`` and ``n_decode`` greedy decode steps
+    through the port's prefill / decode steps, with `flash_fwd`'s launches
+    counted over this run alone (``want_flash`` a prefill, all `.mma`, none
+    in decode), host times, peak memory, a profile by class of the prefill
+    and of one decode step (kernels charged to ``ranges`` where they ran
+    inside them), and the host syncs of one decode step."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.training.train_state import (make_decode_step,
+                                                  make_prefill_step)
+    on_card = device == "cuda"
+    B = batch["tokens"].shape[0]
+    cache_len = batch["tokens"].shape[1] + n_decode
+    prefill_step, decode_step = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def fresh_caches():
+        return init_params(0, M.cache_specs_tree(cfg, B, cache_len,
+                                                 src_len=src_len),
+                           device=device)
+
+    prefill_step(params, batch, fresh_caches())     # warm-up
+    sync(torch, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_model_launches()
+    caches = fresh_caches()
+    sync(torch, device)
+    t0 = time.perf_counter()
+    tok, caches = prefill_step(params, batch, caches)
+    sync(torch, device)
+    prefill_s = time.perf_counter() - t0
+    per_prefill = model_launches()
+    want = (route_counts(want_flash, 0, want_flash, 0) if on_card
+            else route_counts(0, 0, 0, 0))
+    if per_prefill != want:
+        fail(f"{what} prefill launched {per_prefill}, expected {want}")
+    toks = [tok]
+    t0 = time.perf_counter()
+    for _ in range(n_decode):
+        tok, caches = decode_step(params, {"tokens": tok[:, None]}, caches)
+        toks.append(tok)
+    sync(torch, device)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_decode
+    launches = model_launches()
+    if launches != per_prefill:
+        fail(f"{what} decode launched flash_fwd: {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0
+    with torch.no_grad():
+        logits, _ = M.decode_step(cfg, params, {"tokens": tok[:, None]},
+                                  caches)
+    if tuple(logits.shape) != (B, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{what} decode logits {tuple(logits.shape)} not finite or "
+             "mis-shaped")
+    log(f"[{what}] {M.count_params(cfg)} params bf16: prefill B={B} "
+        f"{ {k: tuple(v.shape) for k, v in batch.items()} } "
+        f"{prefill_s:.3f}s = {batch['tokens'].numel() / prefill_s:.0f} "
+        f"target tokens/s; decode {decode_ms:.2f} ms/step over {n_decode} "
+        f"steps; peak memory {peak_gb:.2f} GiB; launches "
+        f"{json.dumps(launches)}")
+    out = {"prefill_s": prefill_s, "decode_ms": decode_ms,
+           "peak_gib": peak_gb, "launches": launches}
+    if on_card:
+        with slice_ranges():
+            out["prefill_profile"] = profile_ranges(
+                torch, f"{what} bf16 prefill",
+                lambda: prefill_step(params, batch, fresh_caches()),
+                prefill_s * 1e3, ranges)
+            out["decode_profile"] = profile_ranges(
+                torch, f"{what} bf16 decode step",
+                lambda: decode_step(params, {"tokens": toks[-1][:, None]},
+                                    caches), decode_ms, ranges)
+        syncs = decode_syncs(torch, lambda: decode_step(
+            params, {"tokens": toks[-1][:, None]}, caches))
+        out["decode_syncs"] = len(syncs)
+        log(f"[{what}] host syncs of one decode step: {len(syncs)} "
+            f"{json.dumps(sorted(set(syncs))[:5])}")
+    return out
+
+
+def layer_routes(torch, cfg, ls, p, x, pos, mode, causal, enc_kv, device):
+    """One layer on input ``x`` through the plain torch paths, then through
+    the kernels with the MoE routed to the plain route's experts (the gates
+    still from the kernel route's own router probabilities, renormalised
+    over those experts): [(out, after_attn, experts)] for (kernels, plain).
+    ``after_attn`` is the residual stream after the self-attention
+    sub-block, ``experts`` (N, k) the experts the route's own router chose
+    (None where the layer does not route).  No cache is written: its k and
+    v are projected before any kernel runs."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
+    route = moe_lib._route
+    outs = []
+    for c in (cfg.replace(use_pallas=False), cfg.replace(use_pallas=True)):
+        chose, attn = [], []
+        pin = outs[0][2] if outs else None
+
+        def pinned(xf, w, k):
+            gates, experts, probs = route(xf, w, k)
+            chose.append(experts)
+            if pin is None:
+                return gates, experts, probs
+            g = probs.gather(1, pin)
+            return g / g.sum(-1, keepdim=True).clamp_min(1e-9), pin, probs
+        moe_lib._route = pinned
+        try:
+            with hooked(attn_lib, "attention_block",
+                        after=lambda args, out: attn.append(out[0])):
+                y, _, _ = M.apply_layer(
+                    c, ls, p, x, torch.zeros((), device=device), mode=mode,
+                    positions=pos, enc_kv=enc_kv, causal=causal)
+        finally:
+            moe_lib._route = route
+        outs.append((y, x + attn[0], chose[0] if chose else None))
+    return outs[::-1]
+
+
+def layerwise_check(torch, cfg, layers, tol, device, what):
+    """Each layer of ``layers`` (functions of the previous layer's plain
+    output giving the `layer_routes` arguments between ``cfg`` and
+    ``device``) through both routes, every token held within ``tol`` of the
+    plain route's max: the residual stream after self-attention (where the
+    kernel runs) and the layer's output with the MoE on the plain route's
+    experts.  The share of tokens whose own router picks
+    agree between the routes is reported (a bf16 rounding difference in the
+    attention flips near-tied router choices, and a flip moves the capacity
+    cut of the experts it touches).  Returns the worst of each."""
+    worst = {"after_attn": 0.0, "out": 0.0, "routing_agreement": 1.0}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp_min(1e-30))
+
+    x = None
+    with torch.no_grad():
+        for i, make in enumerate(layers):
+            args = make(x)
+            (yk, ak, ek), (yp, ap, ep) = layer_routes(torch, cfg, *args,
+                                                      device)
+            errs = {"after_attn": rel(ak, ap), "out": rel(yk, yp)}
+            if ek is not None:
+                worst["routing_agreement"] = min(
+                    worst["routing_agreement"],
+                    float((ek.sort(dim=-1).values == ep.sort(dim=-1).values
+                           ).all(dim=-1).float().mean()))
+            for k, e in errs.items():
+                worst[k] = max(worst[k], e)
+            if max(errs.values()) > tol:
+                fail(f"{what} layer {i}: the kernel path differs from the "
+                     f"plain path by {json.dumps(errs)} > {tol}")
+            x = yp
+    return worst
+
+
+def moe_full_phase(torch, cfg=None, device="cuda", B=4, S=2048,
+                   n_decode=32, seed=7):
+    """qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts,
+    top-8) in bf16: weights drawn on the card in bf16, every attention
+    layer scaled to its true fan-in, B=4 S=2048 prefill and 32 decode steps
+    through the serve steps, then every layer through both routes."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params
+    cfg = (cfg or get_config("qwen3-moe-30b-a3b")).replace(
+        dtype="bfloat16", use_pallas=True)
+    t0 = time.perf_counter()
+    params = init_params(seed, M.model_param_specs(cfg),
+                         dtype=torch.bfloat16, device=device)
+    condition_attention(params)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=device, dtype=torch.int32)
+    sync(torch, device)
+    n_layers = sum(g.repeat * len(g.layers) for g in cfg.groups)
+    log(f"[moe] {cfg.name}: {M.count_params(cfg)} params "
+        f"({M.count_params(cfg, active_only=True)} active) drawn in bf16 in "
+        f"{time.perf_counter() - t0:.1f}s; {n_layers} layers, attention "
+        f"scaled to its true fan-in")
+    run = serve_run(torch, cfg, params, {"tokens": prompts}, n_decode, 0,
+                    n_layers if device == "cuda" else 0, device, "moe",
+                    MOE_RANGES)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pos = torch.broadcast_to(torch.arange(S, device=device), (B, S))
+    (g,) = cfg.groups
+    (ls,) = g.layers
+    gp = params["decoder"]["g0"]
+
+    def layer(r):
+        def make(x):
+            if x is None:
+                x = L.embed_tokens(params["embed"], prompts, cfg)
+            return (ls, M._index_tree(gp, r)["L0"], x, pos, "prefill", True,
+                    None)
+        return make
+    worst = layerwise_check(torch, cfg, [layer(r) for r in range(g.repeat)],
+                            2e-2, device, "moe")
+    log(f"[moe] bf16 prefill, layer by layer on the plain route's input: "
+        f"kernels vs plain torch paths worst {json.dumps(worst)} (every "
+        f"token held to 2e-2 of the plain path's max, the MoE on the plain "
+        f"route's experts) in {time.perf_counter() - t0:.1f}s")
+    run["layers"] = worst
+    del params
+    return run
+
+
+def encdec_full_phase(torch, cfg=None, device="cuda", B=4, S_src=2048,
+                      S=512, n_decode=32, seed=7):
+    """seamless-m4t-medium whole in bf16: B=4, 2048 encoder frames, a
+    512-token target prompt, 32 decode steps through the serve steps
+    (flash in the 12 encoder layers), then every encoder and decoder layer
+    through both routes."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params
+    cfg = (cfg or get_config("seamless-m4t-medium")).replace(
+        dtype="bfloat16", use_pallas=True)
+    params = init_params(seed, M.model_param_specs(cfg),
+                         dtype=torch.bfloat16, device=device)
+    condition_attention(params)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=device, dtype=torch.int32)
+    frames = torch.randn((B, S_src, cfg.d_model), generator=gen,
+                         device=device).to(torch.bfloat16)
+    n_enc = sum(g.repeat * len(g.layers) for g in cfg.encoder_groups)
+    run = serve_run(torch, cfg, params, {"tokens": prompts,
+                                         "enc_embeds": frames},
+                    n_decode, S_src, n_enc if device == "cuda" else 0,
+                    device, "encdec", CROSS_RANGES)
+    t0 = time.perf_counter()
+    (ge,), (gd,) = cfg.encoder_groups, cfg.groups
+    (le,), (ld,) = ge.layers, gd.layers
+    enc_pos = torch.broadcast_to(torch.arange(S_src, device=device),
+                                 (B, S_src))
+    dec_pos = torch.broadcast_to(torch.arange(S, device=device), (B, S))
+    enc_out = []
+
+    def enc_layer(r):
+        def make(x):
+            x = frames if x is None else x
+            return (le, M._index_tree(params["encoder"]["g0"], r)["L0"], x,
+                    enc_pos, "train", False, None)
+        return make
+
+    def dec_layer(r):
+        def make(x):
+            if not enc_out:
+                enc_out.append(L.rms_norm(x, params["encoder"]["enc_norm"],
+                                          cfg.norm_eps))
+                x = None
+            if x is None:
+                x = L.embed_tokens(params["embed"], prompts, cfg)
+            p = M._index_tree(params["decoder"]["g0"], r)["L0"]
+            return (ld, p, x, dec_pos, "prefill", True,
+                    attn_lib.encode_cross_kv(p["cross"], enc_out[0], cfg))
+        return make
+    worst = layerwise_check(
+        torch, cfg, [enc_layer(r) for r in range(ge.repeat)]
+        + [dec_layer(r) for r in range(gd.repeat)], 2e-2, device, "encdec")
+    log(f"[encdec] bf16 prefill, layer by layer on the plain route's input "
+        f"({ge.repeat} encoder, then {gd.repeat} decoder layers on the plain "
+        f"encoder's output): kernels vs plain torch paths worst "
+        f"{json.dumps(worst)} "
+        f"(tolerance 2e-2) in {time.perf_counter() - t0:.1f}s")
+    run["layers"] = worst
+    del params
+    return run
+
+
+def moe_encdec_phases(torch, device="cuda"):
+    """The MoE and enc-dec slice on the card, each phase after an empty
+    cache and freeing its weights: the 2-layer f32 qwen3-moe against its
+    reference file, then its engine; the full-depth bf16 qwen3-moe; f32
+    seamless against its reference file; bf16 seamless.  Returns the
+    bf16 runs' `flash_fwd` launches by model."""
+    t0 = time.perf_counter()
+    cfg, params = moe_reference_phase(torch, device)
+    engine_phase(torch, params, cfg, device=device)
+    del params
+    torch.cuda.empty_cache()
+    log(f"[time] MoE reference and engine phases "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    moe = moe_full_phase(torch, device=device)
+    torch.cuda.empty_cache()
+    log(f"[time] MoE full-depth phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    encdec_reference_phase(torch, device)
+    torch.cuda.empty_cache()
+    encdec = encdec_full_phase(torch, device=device)
+    torch.cuda.empty_cache()
+    log(f"[time] enc-dec phases {time.perf_counter() - t0:.1f}s")
+    return {"moe": moe["launches"], "encdec": encdec["launches"]}
+
+
+
 def main():
     if os.environ.get("PYTHONHASHSEED") != "0":
         env = dict(os.environ, PYTHONHASHSEED="0")
@@ -1945,6 +2501,13 @@ def main():
     swarm_restore_phase(torch)
     log(f"[time] swarm-restore phase {time.perf_counter() - t0:.1f}s")
 
+    # ---- MoE and encoder-decoder slice ------------------------------------ #
+    torch.cuda.empty_cache()
+    slice_launches = moe_encdec_phases(torch)
+    for name, counts in slice_launches.items():
+        if counts["flash_fwd"] <= 0:
+            fail(f"flash_fwd never launched on the {name} path")
+
     kernels = []
     for name in ("rarest_keys", "island_has", "match_requests", "flash_fwd",
                  "ssd_scan"):
@@ -1963,7 +2526,10 @@ def main():
                                or (k == name and k != kernel)},
             # the train path: the timed bf16 steps (forward + recompute)
             "train_launches": train["launches"].get(kernel, 0),
-            "train_launches_per_step": train["per_step"].get(kernel, 0)})
+            "train_launches_per_step": train["per_step"].get(kernel, 0),
+            # the bf16 prefill + decode of qwen3-moe and of seamless
+            "moe_launches": slice_launches["moe"].get(kernel, 0),
+            "encdec_launches": slice_launches["encdec"].get(kernel, 0)})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

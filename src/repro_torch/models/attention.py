@@ -11,9 +11,11 @@ Counterpart of `repro.models.attention`:
   * ``decode`` — single-token attention against a KV cache, with per-slot
                  positions and the ring buffer of sliding-window caches.
 
-The shard_map paths of the reference (sequence-sharded flash-decode,
-column/row-parallel projections) come with the parallel slice; cross
-attention with the encoder-decoder slice.
+Cross attention (encoder-decoder) projects the encoder's output to k/v
+once (`encode_cross_kv`) and attends to it without a mask
+(`cross_attention_block`).  The shard_map paths of the reference
+(sequence-sharded flash-decode, column/row-parallel projections) come with
+the parallel slice.
 
 Caches are updated in place: the prefill and decode writes go into the
 cache tensors the caller passed (the reference returns new arrays), which
@@ -279,3 +281,39 @@ def _cache_update(cache: torch.Tensor, kv: torch.Tensor,
     for b, s0 in enumerate(start.tolist()):
         cache[b, s0:s0 + Sn] = kv[b]
     return cache
+
+
+# --------------------------------------------------------------------------- #
+# Cross attention (encoder-decoder)
+# --------------------------------------------------------------------------- #
+def cross_attention_block(params: dict, x: torch.Tensor, enc_kv: Tuple,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, St, d); enc_kv = (k, v), (B, S_src, Hkv, D), precomputed from
+    the encoder's output.  One query per sequence attends in one product;
+    a longer query runs full attention up to 4096 x 4096 scores, the brick
+    scan above."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
+    k, v = enc_kv
+    B, Sq = q.shape[0], q.shape[1]
+    if Sq == 1:
+        Hq, Hkv, D = q.shape[2], k.shape[2], q.shape[-1]
+        q5 = q.reshape(B, 1, Hkv, Hq // Hkv, D)
+        s = torch.einsum("bqkgd,bskd->bqkgs", q5, k) / math.sqrt(D)
+        p = torch.softmax(s.float(), dim=-1).to(dt)
+        out = torch.einsum("bqkgs,bskd->bqkgd", p, v).reshape(q.shape)
+    elif Sq * k.shape[1] <= 4096 * 4096:
+        out = full_attention(q, k, v, causal=False)
+    else:
+        out = brick_attention(q, k, v, causal=False, cq=cfg.attn_chunk_q,
+                              ck=cfg.attn_chunk_kv)
+    return torch.einsum("bshe,hed->bsd", out.to(dt), params["wo"].to(dt))
+
+
+def encode_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention k, v (B, S_src, Hkv, D) of the encoder output."""
+    dt = enc_out.dtype
+    k = torch.einsum("bsd,dhe->bshe", enc_out, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhe->bshe", enc_out, params["wv"].to(dt))
+    return k, v

@@ -6,6 +6,12 @@ on a leading repeat axis, and the forward pass loops over that axis (the
 reference scans it).  Parameters and caches are nested dicts of tensors
 keyed by the reference's `ParamSpec` paths.
 
+An encoder-decoder model (``cfg.is_encdec``) runs its encoder groups
+bidirectionally over ``batch["enc_embeds"]`` (`encode`); each decoder
+layer's cross attention projects the encoder output to k/v, which prefill
+writes into the ``cross_k`` / ``cross_v`` caches and decode reads back (a
+decode batch carries no ``enc_embeds``).
+
 `prefill` and `decode_step` update the caches they are given in place and
 return them with the new ``index``.  `loss_fn` is the train objective; in
 train mode with ``cfg.remat == "full"`` each repeat's layers run under
@@ -27,8 +33,6 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.parallel.sharding import (ParamSpec, tree_leaves_with_path,
                                            tree_map_specs)
 
-_ENCDEC = ("encoder-decoder models (the encoder and cross attention) come "
-           "with the encoder-decoder slice (ROADMAP queue 1, item 4)")
 _REMAT_DOTS = ("remat='dots' (save the matmul outputs, recompute the rest) "
                "is not ported (ROADMAP queue 2, after parity); use 'full' or "
                "'none'")
@@ -161,7 +165,8 @@ def cache_specs_tree(cfg: ModelConfig, batch: int, cache_len: int,
 # --------------------------------------------------------------------------- #
 def apply_layer(cfg: ModelConfig, lspec: LayerSpec, p: dict, x: torch.Tensor,
                 aux: torch.Tensor, *, shared_params=None, mode: str,
-                positions=None, cache=None, index=None, causal: bool = True
+                positions=None, cache=None, index=None, enc_kv=None,
+                causal: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     new_cache: Dict[str, Any] = {}
     if lspec.mixer in ("attn", "attn_local"):
@@ -198,6 +203,10 @@ def apply_layer(cfg: ModelConfig, lspec: LayerSpec, p: dict, x: torch.Tensor,
             new_cache["shared_k"] = nc["k"]
             new_cache["shared_v"] = nc["v"]
 
+    if enc_kv is not None and "cross" in p:
+        h = L.rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        x = x + attn_lib.cross_attention_block(p["cross"], h, enc_kv, cfg)
+
     if lspec.mlp == "dense":
         h = L.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
         x = x + L.mlp_apply(p["mlp"], h)
@@ -216,12 +225,36 @@ def _index_tree(tree, r: int):
     return tree[r]
 
 
+def _layer_enc_kv(cfg: ModelConfig, lp: dict, lc: Optional[dict], enc_out,
+                  mode: str):
+    """A decoder layer's cross-attention (k, v): from its cache in decode,
+    else projected from the encoder output; None without cross attention."""
+    if enc_out is None or "cross" not in lp:
+        return None
+    if mode == "decode" and lc is not None and "cross_k" in lc:
+        return lc["cross_k"], lc["cross_v"]
+    return attn_lib.encode_cross_kv(lp["cross"], enc_out, cfg)
+
+
+def _write_cross(lc: dict, enc_kv) -> None:
+    """Prefill: the cross k/v into the layer's ``cross_k`` / ``cross_v``
+    caches, in place (their length is the source length they were made
+    for)."""
+    for name, new in zip(("cross_k", "cross_v"), enc_kv):
+        if lc[name].shape != new.shape:
+            raise ValueError(f"{name} cache {tuple(lc[name].shape)} does not "
+                             f"fit the encoder output's {tuple(new.shape)}: "
+                             "make the caches with src_len = its length")
+        lc[name].copy_(new)
+
+
 def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
                mode: str, positions=None, caches=None, index=None,
-               shared_params=None, causal: bool = True
+               shared_params=None, enc_out=None, causal: bool = True
                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Run all layer groups, repeat by repeat.  Returns (x, aux, caches):
-    the caches given, updated in place, or None without caches."""
+    the caches given, updated in place, or None without caches.
+    ``enc_out`` (B, S_src, d) feeds the decoder layers' cross attention."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = mode == "train" and cfg.remat != "none"
     if remat and cfg.remat != "full":
@@ -233,18 +266,22 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
             p_slice = _index_tree(gp, r)
             if remat:
                 x, aux = checkpoint(_remat_body(), cfg, g.layers, p_slice, x,
-                                    aux, shared_params, positions, causal,
-                                    use_reentrant=False)
+                                    aux, shared_params, positions, enc_out,
+                                    causal, use_reentrant=False)
                 continue
             c_slice = _index_tree(gc, r) if gc is not None else None
             for pidx, ls in enumerate(g.layers):
                 key = f"L{pidx}"
                 lc = c_slice[key] if c_slice is not None else None
+                enc_kv = _layer_enc_kv(cfg, p_slice[key], lc, enc_out, mode)
                 x, aux, nc = apply_layer(
                     cfg, ls, p_slice[key], x, aux,
                     shared_params=shared_params, mode=mode,
                     positions=positions, cache=lc, index=index,
-                    causal=causal)
+                    enc_kv=enc_kv, causal=causal)
+                if (lc is not None and "cross_k" in lc and enc_kv is not None
+                        and mode == "prefill"):
+                    _write_cross(lc, enc_kv)
                 if lc is not None and nc:
                     for name, new in nc.items():
                         dst = lc[name]            # a view into the stack
@@ -270,14 +307,16 @@ def _remat_body():
 
 
 def _repeat_body(cfg: ModelConfig, layers, p_slice: dict, x: torch.Tensor,
-                 aux: torch.Tensor, shared_params, positions, causal: bool
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 aux: torch.Tensor, shared_params, positions, enc_out,
+                 causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """One repeat of a group's layers in train mode (no caches): the unit
     that activation checkpointing saves the input of and recomputes."""
     for pidx, ls in enumerate(layers):
-        x, aux, _ = apply_layer(cfg, ls, p_slice[f"L{pidx}"], x, aux,
-                                shared_params=shared_params, mode="train",
-                                positions=positions, causal=causal)
+        lp = p_slice[f"L{pidx}"]
+        x, aux, _ = apply_layer(
+            cfg, ls, lp, x, aux, shared_params=shared_params, mode="train",
+            positions=positions, causal=causal,
+            enc_kv=_layer_enc_kv(cfg, lp, None, enc_out, "train"))
     return x, aux
 
 
@@ -304,15 +343,31 @@ def _positions(cfg: ModelConfig, batch: dict, B: int, S: int, device,
 
 
 def encode(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    raise NotImplementedError(_ENCDEC)
+    """The encoder over ``batch["enc_embeds"]`` (B, S_src, d): its groups
+    without a causal mask, then ``enc_norm``."""
+    x = batch["enc_embeds"].to(cfg.act_dtype)
+    B, S = x.shape[0], x.shape[1]
+    pos = torch.broadcast_to(torch.arange(S, device=x.device), (B, S))
+    x, _, _ = run_groups(cfg, cfg.encoder_groups, params["encoder"], x,
+                         mode="train", positions=pos, causal=False)
+    return L.rms_norm(x, params["encoder"]["enc_norm"], cfg.norm_eps)
 
 
 def backbone(cfg: ModelConfig, params: dict, batch: dict, *,
              mode: str = "train", caches=None, index=None):
-    """Everything up to (but excluding) the LM head."""
+    """Everything up to (but excluding) the LM head.  An encoder-decoder
+    model encodes ``enc_embeds`` first; a decode batch without them reads
+    the cross caches, and its ``enc_out`` is a (B, 1, d) zero stand-in."""
+    enc_out = None
     if cfg.is_encdec:
-        raise NotImplementedError(_ENCDEC)
-    x = _inputs_to_x(cfg, params, batch)
+        if mode != "decode" or "enc_embeds" in batch:
+            enc_out = encode(cfg, params, batch)
+        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        if enc_out is None:
+            enc_out = torch.zeros((x.shape[0], 1, cfg.d_model),
+                                  dtype=cfg.act_dtype, device=x.device)
+    else:
+        x = _inputs_to_x(cfg, params, batch)
     B, S = x.shape[0], x.shape[1]
     positions = _positions(cfg, batch, B, S, x.device,
                            index if mode == "decode" else None)
@@ -321,7 +376,7 @@ def backbone(cfg: ModelConfig, params: dict, batch: dict, *,
                                  mode=mode, positions=positions,
                                  caches=dec_caches, index=index,
                                  shared_params=params.get("shared_attn"),
-                                 causal=True)
+                                 enc_out=enc_out, causal=True)
     new_caches = None
     if new_dec is not None:
         if index is not None:   # decode: advance each sequence's position

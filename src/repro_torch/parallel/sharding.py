@@ -73,16 +73,33 @@ def _std(s: ParamSpec) -> float:
     return s.scale / math.sqrt(max(fan_in, 1))
 
 
+# f32 elements drawn at a time (1 GiB): a larger leaf is filled in slices
+# along its leading axis
+DRAW_ELEMENTS = 1 << 28
+
+
 def init_param(gen: torch.Generator, s: ParamSpec, dtype=None,
                device="cuda") -> torch.Tensor:
+    """One leaf in ``dtype`` (the spec's by default).  The normal draw is
+    taken in f32 and cast, slice by slice along the leading axis, at most
+    `DRAW_ELEMENTS` elements a slice, so the f32 temporary stays at about
+    1 GiB; a smaller leaf is one slice (a stacked expert leaf of
+    qwen3-moe-30b-a3b, 9.66e9 elements, would need 38.7 GB in one draw)."""
     dev = resolve_device(device)
     dt = dtype or s.dtype
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=dt, device=dev)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=dt, device=dev)
-    w = torch.randn(s.shape, generator=gen, dtype=torch.float32, device=dev)
-    return (w * _std(s)).to(dt)
+    std = _std(s)
+    out = torch.empty(s.shape, dtype=dt, device=dev)
+    rows = max(1, DRAW_ELEMENTS // max(1, math.prod(s.shape[1:])))
+    for r0 in range(0, s.shape[0], rows):
+        part = out[r0:r0 + rows]
+        w = torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        part.copy_(w.mul_(std))
+    return out
 
 
 def init_params(seed: int, tree, dtype=None, device="cuda"):

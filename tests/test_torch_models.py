@@ -3,16 +3,23 @@ on the CPU, with the same weights handed to both (drawn with numpy by the
 reference's init rule, carried over by `params_from_reference`).
 
 For reduced configs of zamba2-7b (SSD + shared attention), mamba2-2.7b
-(pure SSD), granite-8b (dense GQA) and gemma3-12b (sliding-window layers
-with a ring cache), in f32: train-mode logits, prefill logits and every
-cache leaf, and 7 decode steps, with the torch paths and with the kernels
-(the reference's Pallas kernels in interpret mode, the port's kernels'
-plain versions).
+(pure SSD), granite-8b (dense GQA), gemma3-12b (sliding-window layers
+with a ring cache), qwen3-14b (qk-norm), internlm2-20b, qwen2-vl-2b
+(mrope), qwen3-moe-30b-a3b and llama4-scout-17b-a16e (MoE; llama4 top-1
+with a shared expert) and seamless-m4t-medium (encoder-decoder: the
+encoder frames go with the forward and the prefill, decode reads the
+cross caches), in f32: train-mode logits, prefill logits and every cache
+leaf, and 7 decode steps, with the torch paths and with the kernels (the
+reference's Pallas kernels in interpret mode, the port's kernels' plain
+versions).
 
-Run as a script with ``--write-reference-serve`` it writes
-`src/repro_torch/reference_serve.json`, the reference's prefill and decode
-of zamba2-7b at full width (7 layers) that `chip_smoke.py` holds the port
-to on the card:
+Run as a script it writes the reference files that `chip_smoke.py` holds
+the port to on the card, from the reference on the CPU in f32:
+``--write-reference-serve`` `src/repro_torch/reference_serve.json`
+(zamba2-7b at full width, 7 layers), ``--write-reference-serve-moe``
+`reference_serve_moe.json` (qwen3-moe-30b-a3b at full width, 2 layers,
+with every MoE call's routing) and ``--write-reference-serve-encdec``
+`reference_serve_encdec.json` (seamless-m4t-medium whole):
 
     PYTHONPATH=src python tests/test_torch_models.py --write-reference-serve
 """
@@ -51,7 +58,10 @@ from repro_torch.training.train_state import (make_decode_step,  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SERVE_FILE = ROOT / "src" / "repro_torch" / "reference_serve.json"
-ARCHS = ["zamba2-7b", "mamba2-2.7b", "granite-8b", "gemma3-12b"]
+ARCHS = ["zamba2-7b", "mamba2-2.7b", "granite-8b", "gemma3-12b",
+         "qwen3-14b", "internlm2-20b", "qwen2-vl-2b", "qwen3-moe-30b-a3b",
+         "llama4-scout-17b-a16e", "seamless-m4t-medium"]
+SRC_LEN = 8                 # encoder frames of the enc-dec cases
 # relative to the largest |logit|; the bound tests/test_models.py holds
 # prefill/decode to against the full forward
 TOL = 2e-3
@@ -83,6 +93,14 @@ def leaves(tree):
     return dict(tree_leaves_with_path(tree))
 
 
+def jbatch(**arrays):
+    return {k: jnp.asarray(v) for k, v in arrays.items()}
+
+
+def tbatch(**arrays):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in arrays.items()}
+
+
 @pytest.mark.parametrize("use_pallas", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_decode_match_reference(arch, use_pallas):
@@ -92,27 +110,32 @@ def test_forward_prefill_decode_match_reference(arch, use_pallas):
     jcfg, cfg = configs(arch, **kw)
     jparams, params = shared_params(cfg, 1)
     B, S_total, S_prompt = 2, 12, 5
-    toks = np.random.default_rng(2).integers(0, cfg.vocab_size,
-                                             (B, S_total)).astype(np.int32)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, (B, S_total)).astype(np.int32)
+    src = {}
+    if cfg.is_encdec:       # encoder frames go with the forward and prefill
+        src["enc_embeds"] = (rng.standard_normal((B, SRC_LEN, cfg.d_model))
+                             * 0.1).astype(np.float32)
     jforward = jax.jit(lambda p, b: JM.forward(jcfg, p, b, mode="train"))
     jprefill = jax.jit(lambda p, b, c: JM.prefill(jcfg, p, b, c))
     jdecode = jax.jit(lambda p, b, c: JM.decode_step(jcfg, p, b, c))
-    jl, _, _ = jforward(jparams, {"tokens": jnp.asarray(toks)})
+    jl, _, _ = jforward(jparams, jbatch(tokens=toks, **src))
     with torch.no_grad():
-        tl, _, _ = M.forward(cfg, params, {"tokens": torch.from_numpy(toks)},
+        tl, _, _ = M.forward(cfg, params, tbatch(tokens=toks, **src),
                              mode="train")
     assert scale_err(jl, tl) < 1e-4
 
-    jc = jax_init_params(jax.random.PRNGKey(0),
-                         JM.cache_specs_tree(jcfg, B, S_total))
-    tc = init_params(0, M.cache_specs_tree(cfg, B, S_total), device="cpu")
+    src_len = SRC_LEN if cfg.is_encdec else 0
+    jc = jax_init_params(jax.random.PRNGKey(0), JM.cache_specs_tree(
+        jcfg, B, S_total, src_len=src_len))
+    tc = init_params(0, M.cache_specs_tree(cfg, B, S_total, src_len=src_len),
+                     device="cpu")
     assert leaves(jc).keys() == leaves(tc).keys()
-    jlast, jc = jprefill(jparams, {"tokens": jnp.asarray(toks[:, :S_prompt])},
+    jlast, jc = jprefill(jparams, jbatch(tokens=toks[:, :S_prompt], **src),
                          jc)
     with torch.no_grad():
         tlast, tc = M.prefill(cfg, params,
-                              {"tokens": torch.from_numpy(toks[:, :S_prompt])},
-                              tc)
+                              tbatch(tokens=toks[:, :S_prompt], **src), tc)
     assert scale_err(jlast, tlast) < 1e-4
     assert scale_err(jl[:, S_prompt - 1], tlast) < TOL
     jleaves, tleaves = leaves(jc), leaves(tc)
@@ -249,13 +272,12 @@ def test_spec_trees_and_counts_match_reference(arch):
     assert M.count_params(cfg) == JM.count_params(jcfg)
     assert M.count_params(cfg, active_only=True) == \
         JM.count_params(jcfg, active_only=True)
-    if not cfg.is_encdec:
-        jc = jax.tree_util.tree_map(
-            lambda s: s.shape, JM.cache_specs_tree(jcfg, 2, 64),
-            is_leaf=lambda x: isinstance(x, JParamSpec))
-        tc = {p: tuple(s.shape) for p, s in tree_leaves_with_path(
-            M.cache_specs_tree(cfg, 2, 64))}
-        assert tc == {p: tuple(s) for p, s in tree_leaves_with_path(jc)}
+    jc = jax.tree_util.tree_map(
+        lambda s: s.shape, JM.cache_specs_tree(jcfg, 2, 64, src_len=16),
+        is_leaf=lambda x: isinstance(x, JParamSpec))
+    tc = {p: tuple(s.shape) for p, s in tree_leaves_with_path(
+        M.cache_specs_tree(cfg, 2, 64, src_len=16))}
+    assert tc == {p: tuple(s) for p, s in tree_leaves_with_path(jc)}
 
 
 def test_params_from_reference_round_trip():
@@ -324,23 +346,83 @@ def serve_layers():
     return [[[ssd] * 5 + [ssd_attn], 1], [[ssd], 1]]
 
 
+def group_specs(groups, GroupSpec, LayerSpec):
+    """A file's (mixer, mlp, shared_attn) triples per group as one
+    package's `GroupSpec`s."""
+    return tuple(GroupSpec(tuple(LayerSpec(*l) for l in ls), r)
+                 for ls, r in groups)
+
+
+def reference_weights(cfg, seed, scaled=False):
+    """The numpy weights of ``seed`` as the reference's arrays, with each
+    rank >= 2 leaf's sum of |w| as drawn (the card checks its own draw
+    against these), then with the attention scaled (`scale_attention`)
+    where ``scaled``; the numpy leaves are dropped as they are copied, so
+    the host holds one copy of the weights at a time."""
+    tree = init_params_numpy(seed, M.model_param_specs(cfg))
+    checks = {p: float(np.sum(np.abs(a), dtype=np.float64))
+              for p, a in tree_leaves_with_path(tree) if a.ndim >= 2}
+    if scaled:
+        scale_attention(tree)
+
+    def move(node):
+        return {k: move(node.pop(k)) if isinstance(node[k], dict)
+                else jnp.asarray(node.pop(k)) for k in sorted(node)}
+    return move(tree), checks
+
+
+def scale_attention(tree):
+    """Every attention block's wq/wk/wv to a fan-in of d_model and wo to
+    one of heads*head_dim, in place (numpy; `chip_smoke.py`'s
+    `condition_attention` on tensors): the reference's init rule takes the
+    head count (wq/wk/wv) or head_dim (wo) as a rank-3 weight's fan-in,
+    which saturates the softmax, and a deep random stack then amplifies
+    f32 rounding ~15x a layer (seamless's encoder: 7e-5 of max|x| after
+    one layer, 0.7 after twelve, port against reference; 1.7e-6 with the
+    scaling)."""
+    if {"wq", "wk", "wv", "wo"} <= tree.keys():
+        for name in ("wq", "wk", "wv"):
+            w = tree[name]
+            w *= np.float32((w.shape[-2] / w.shape[-3]) ** 0.5)
+        tree["wo"] *= np.float32((1.0 / tree["wo"].shape[-3]) ** 0.5)
+        return
+    for sub in tree.values():
+        if isinstance(sub, dict):
+            scale_attention(sub)
+
+
+def reference_steps(jcfg, jparams, batch, caches, n_decode, idx):
+    """The reference's prefill of ``batch``, then ``n_decode`` greedy
+    decode steps each fed the previous step's token: per step the token,
+    max|logit| and the logits at ``idx``."""
+    steps = []
+    logits, caches = JM.prefill(jcfg, jparams, batch, caches)
+    for i in range(n_decode + 1):
+        lg = np.asarray(logits[0], np.float32)
+        steps.append({"token": int(np.argmax(lg)),
+                      "max_abs": float(np.max(np.abs(lg))),
+                      "values": [float(v) for v in lg[idx]]})
+        print(f"step {i}: token {steps[-1]['token']} "
+              f"max|logit| {steps[-1]['max_abs']:.4f}", flush=True)
+        if i == n_decode:
+            break
+        tok = jnp.asarray([[steps[-1]["token"]]], jnp.int32)
+        logits, caches = JM.decode_step(jcfg, jparams, {"tokens": tok},
+                                        caches)
+    return steps
+
+
 def write_reference_serve(path=SERVE_FILE):
     from repro.configs.base import GroupSpec, LayerSpec
     from repro_torch.configs.base import GroupSpec as TG, LayerSpec as TL
     groups = serve_layers()
     jcfg = jax_get_config("zamba2-7b").replace(
-        dtype="float32", use_pallas=False, groups=tuple(
-            GroupSpec(tuple(LayerSpec(*l) for l in ls), r)
-            for ls, r in groups))
+        dtype="float32", use_pallas=False,
+        groups=group_specs(groups, GroupSpec, LayerSpec))
     cfg = get_config("zamba2-7b").replace(
-        dtype="float32", use_pallas=False, groups=tuple(
-            TG(tuple(TL(*l) for l in ls), r) for ls, r in groups))
-    specs = M.model_param_specs(cfg)
-    tree = init_params_numpy(SERVE_SEED, specs)
-    checks = {p: float(np.sum(np.abs(a), dtype=np.float64))
-              for p, a in tree_leaves_with_path(tree) if a.ndim >= 2}
-    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
-    del tree
+        dtype="float32", use_pallas=False,
+        groups=group_specs(groups, TG, TL))
+    jparams, checks = reference_weights(cfg, SERVE_SEED)
     rng = np.random.default_rng(SERVE_SEED)
     prompt = rng.integers(0, cfg.vocab_size, (1, SERVE_PROMPT)).astype(
         np.int32)
@@ -348,21 +430,8 @@ def write_reference_serve(path=SERVE_FILE):
                              replace=False)).astype(np.int64)
     caches = jax_init_params(jax.random.PRNGKey(0), JM.cache_specs_tree(
         jcfg, 1, SERVE_PROMPT + SERVE_DECODE))
-    steps = []
-    logits, caches = JM.prefill(jcfg, jparams, {"tokens": jnp.asarray(
-        prompt)}, caches)
-    for i in range(SERVE_DECODE + 1):
-        lg = np.asarray(logits[0], np.float32)
-        steps.append({"token": int(np.argmax(lg)),
-                      "max_abs": float(np.max(np.abs(lg))),
-                      "values": [float(v) for v in lg[idx]]})
-        print(f"step {i}: token {steps[-1]['token']} "
-              f"max|logit| {steps[-1]['max_abs']:.4f}", flush=True)
-        if i == SERVE_DECODE:
-            break
-        tok = jnp.asarray([[steps[-1]["token"]]], jnp.int32)
-        logits, caches = JM.decode_step(jcfg, jparams, {"tokens": tok},
-                                        caches)
+    steps = reference_steps(jcfg, jparams, {"tokens": jnp.asarray(prompt)},
+                            caches, SERVE_DECODE, idx)
     out = {
         "about": "reference package (repro), CPU, f32, use_pallas=False: "
                  "prefill of the prompt, then greedy decode steps each fed "
@@ -377,8 +446,143 @@ def write_reference_serve(path=SERVE_FILE):
     print(f"wrote {path}")
 
 
+# ------- reference_serve_moe.json (qwen3-moe-30b-a3b, full width) ------- #
+MOE_FILE = ROOT / "src" / "repro_torch" / "reference_serve_moe.json"
+MOE_LAYERS = 2             # depth cut; the width is the published one
+
+
+def write_reference_serve_moe(path=MOE_FILE):
+    """qwen3-moe-30b-a3b at full width, 2 layers: the prefill of a
+    1280-token prompt (N > 512: the capacity rule, and drops) and 8 decode
+    steps, with every MoE call's routing: per-expert counts, dropped
+    assignments, and the prefill's expert ids per token."""
+    from repro.configs.base import GroupSpec, LayerSpec
+    from repro.models import moe as jmoe
+    from repro_torch.configs.base import GroupSpec as TG, LayerSpec as TL
+    groups = [[[("attn", "moe", False)], MOE_LAYERS]]
+    jcfg = jax_get_config("qwen3-moe-30b-a3b").replace(
+        dtype="float32", use_pallas=False,
+        groups=group_specs(groups, GroupSpec, LayerSpec))
+    cfg = get_config("qwen3-moe-30b-a3b").replace(
+        dtype="float32", use_pallas=False,
+        groups=group_specs(groups, TG, TL))
+    jparams, checks = reference_weights(cfg, SERVE_SEED)
+    rng = np.random.default_rng(SERVE_SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (1, SERVE_PROMPT)).astype(
+        np.int32)
+    idx = np.sort(rng.choice(cfg.vocab_size, SERVE_LOGIT_IDX,
+                             replace=False)).astype(np.int64)
+    caches = jax_init_params(jax.random.PRNGKey(0), JM.cache_specs_tree(
+        jcfg, 1, SERVE_PROMPT + SERVE_DECODE))
+    routing = []
+
+    def record(experts, capacity):
+        e = np.asarray(experts)
+        counts = np.bincount(e.reshape(-1), minlength=cfg.num_experts)
+        call = {"tokens": int(e.shape[0]), "capacity": int(capacity),
+                "counts": counts.tolist(),
+                "dropped": int(np.maximum(counts - capacity, 0).sum())}
+        if e.shape[0] > 1:
+            call["experts"] = np.sort(e, axis=1).tolist()
+        routing.append(call)
+
+    inner = jmoe._dispatch_compute
+
+    def dispatch(xf, gates, experts, keepers, wi_g, wi_u, wo, capacity,
+                 e_base, e_count):
+        # the scan runs the layers: a callback sees each one's values
+        jax.debug.callback(record, experts, capacity, ordered=True)
+        return inner(xf, gates, experts, keepers, wi_g, wi_u, wo, capacity,
+                     e_base, e_count)
+    jmoe._dispatch_compute = dispatch
+    try:
+        steps = reference_steps(jcfg, jparams,
+                                {"tokens": jnp.asarray(prompt)}, caches,
+                                SERVE_DECODE, idx)
+        jax.effects_barrier()
+    finally:
+        jmoe._dispatch_compute = inner
+    print(f"routing: {len(routing)} calls, prefill drops "
+          f"{[c['dropped'] for c in routing[:MOE_LAYERS]]}")
+    out = {
+        "about": "reference package (repro), CPU, f32, use_pallas=False: "
+                 "prefill of the prompt, then greedy decode steps each fed "
+                 "the previous step's token; routing: each MoE call in "
+                 "order (prefill layers, then each decode step's), expert "
+                 "ids per token sorted; written by "
+                 "tests/test_torch_models.py --write-reference-serve-moe",
+        "arch": "qwen3-moe-30b-a3b", "groups": groups, "dtype": "float32",
+        "seed": SERVE_SEED, "prompt": prompt[0].tolist(),
+        "decode_steps": SERVE_DECODE, "logit_index": idx.tolist(),
+        "tolerance": TOL, "weight_abs_sums": checks, "steps": steps,
+        "routing": routing,
+    }
+    Path(path).write_text(json.dumps(out) + "\n")
+    print(f"wrote {path}")
+
+
+# ---- reference_serve_encdec.json (seamless-m4t-medium, whole model) ---- #
+ENCDEC_FILE = ROOT / "src" / "repro_torch" / "reference_serve_encdec.json"
+ENCDEC_SRC = 1280          # encoder frames (> 1024: the encoder takes flash)
+ENCDEC_PROMPT = 320        # target prompt
+
+
+def write_reference_serve_encdec(path=ENCDEC_FILE):
+    """seamless-m4t-medium whole (12 + 12 layers): the prefill of 1280
+    encoder frames and a 320-token target prompt, then 8 decode steps, on
+    the seed's weights with every attention block scaled to its true
+    fan-in (`scale_attention`: under the init rule as it is, 36 attention
+    layers make the random model chaotic, and no two implementations agree
+    in f32).  The frames are drawn from the seed after the prompt and the
+    logit indices; the file keeps their sum of |x| so a reader can check
+    its own draw."""
+    jcfg = jax_get_config("seamless-m4t-medium").replace(
+        dtype="float32", use_pallas=False)
+    cfg = get_config("seamless-m4t-medium").replace(dtype="float32",
+                                                    use_pallas=False)
+    jparams, checks = reference_weights(cfg, SERVE_SEED, scaled=True)
+    rng = np.random.default_rng(SERVE_SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (1, ENCDEC_PROMPT)).astype(
+        np.int32)
+    idx = np.sort(rng.choice(cfg.vocab_size, SERVE_LOGIT_IDX,
+                             replace=False)).astype(np.int64)
+    frames = rng.standard_normal((1, ENCDEC_SRC, cfg.d_model),
+                                 dtype=np.float32)
+    caches = jax_init_params(jax.random.PRNGKey(0), JM.cache_specs_tree(
+        jcfg, 1, ENCDEC_PROMPT + SERVE_DECODE, src_len=ENCDEC_SRC))
+    steps = reference_steps(jcfg, jparams, {
+        "tokens": jnp.asarray(prompt), "enc_embeds": jnp.asarray(frames)},
+        caches, SERVE_DECODE, idx)
+    out = {
+        "about": "reference package (repro), CPU, f32, use_pallas=False: "
+                 "prefill of the encoder frames and the target prompt, "
+                 "then greedy decode steps each fed the previous step's "
+                 "token; weights drawn from the seed (weight_abs_sums: as "
+                 "drawn), then every attention block's wq/wk/wv scaled by "
+                 "sqrt(heads / d_model) and wo by sqrt(1 / heads) "
+                 "(attention_scaled); frames = default_rng(seed) standard "
+                 "normal "
+                 "(1, src_len, d_model) f32, drawn after the prompt and "
+                 "the logit index; written by tests/test_torch_models.py "
+                 "--write-reference-serve-encdec",
+        "arch": "seamless-m4t-medium", "groups": None, "dtype": "float32",
+        "attention_scaled": True,
+        "seed": SERVE_SEED, "prompt": prompt[0].tolist(),
+        "src_len": ENCDEC_SRC,
+        "frames_abs_sum": float(np.sum(np.abs(frames), dtype=np.float64)),
+        "decode_steps": SERVE_DECODE, "logit_index": idx.tolist(),
+        "tolerance": TOL, "weight_abs_sums": checks, "steps": steps,
+    }
+    Path(path).write_text(json.dumps(out) + "\n")
+    print(f"wrote {path}")
+
+
 if __name__ == "__main__":
-    if "--write-reference-serve" in sys.argv:
-        write_reference_serve()
-    else:
+    writers = {"--write-reference-serve": write_reference_serve,
+               "--write-reference-serve-moe": write_reference_serve_moe,
+               "--write-reference-serve-encdec": write_reference_serve_encdec}
+    chosen = [w for flag, w in writers.items() if flag in sys.argv]
+    for write in chosen:
+        write()
+    if not chosen:
         sys.exit(pytest.main([__file__, "-q"]))
