@@ -86,7 +86,23 @@
    in f32 against `src/repro_torch/reference_serve_encdec.json` (1280
    encoder frames, 320 target tokens, 8 steps), then in bf16 (B=4, 2048
    frames, 512 target tokens, 32 steps) with the same measurements;
-6. prints the per-kernel JSON line (each row with its launches on the
+6. the paper's experiments and the torrent ring across ranks: Tables I
+   and IV (six volunteers) and Scenarios V, VI and XI (R=50, 2 GB) on
+   the scalar protocol against `reference_runs.json`, with each run's
+   wall seconds on the host (host work only: a child process runs them
+   beside the kernel build and the kernel phase of step 2, and its lines
+   print after that phase); then 4 spawned ranks on one gloo
+   `DeviceMesh` with axis ("pod",): rank 0 fetches the 7-layer f32
+   zamba2 checkpoint (789 swarm pieces of 4 MB) through the scalar
+   protocol, all 4 cold-start with `ServingEngine.from_swarm(...,
+   mesh=)` on the card (ranks 1-3 over the ring), every rank's leaves
+   bit-equal to the saved ones (digests gathered) and its greedy tokens
+   `reference_serve.json`'s; `restore_distributed` straight from the
+   store on the same mesh; `pipeline_apply` at the reference check's
+   shapes on the card; prints the ring's seconds, each rank's bytes
+   sent and the seeder's upload as a multiple of the image.  With two
+   cards or more the ring also runs on NCCL;
+7. prints the per-kernel JSON line (each row with its launches on the
    serve, MoE, enc-dec and train paths), the card's name and power limit,
    and as the last line `{"ok": true, "device": {...}}`.
 
@@ -1882,8 +1898,7 @@ def swarm_restore_phase(torch, cfg=None, want=None, device="cuda",
     import numpy as np
     from repro_torch.checkpoint.store import CheckpointStore
     from repro_torch.checkpoint.swarm_restore import checkpoint_application
-    from repro_torch.core import (Agent, AgentConfig, LinkModel, SimRuntime,
-                                  TrackerConfig, TrackerServer)
+    from repro_torch.core import Agent
     from repro_torch.models import model as M
     from repro_torch.parallel.sharding import (init_params_numpy,
                                                tree_leaves_with_path)
@@ -1902,23 +1917,7 @@ def swarm_restore_phase(torch, cfg=None, want=None, device="cuda",
     store.save(0, tree, extra={"arch": ref["arch"], "seed": ref["seed"]})
     save_s = time.perf_counter() - t0
     app = checkpoint_application(store, host_id="origin")
-    rt = SimRuntime(link=LinkModel(uplink_Bps=1.25e9, downlink_Bps=1.25e9))
-    rt.add_node(TrackerServer(config=TrackerConfig(ping_interval_s=1.0)))
-    acfg = dict(work_timeout_s=60.0, status_interval_s=0.5,
-                piece_timeout_s=3.0, replicate_completed=True)
-    origin = Agent("origin", config=AgentConfig(**acfg))
-    rt.add_node(origin)
-    origin.host_app(app)
-    replicas = [Agent(f"R{i}", config=AgentConfig(**acfg))
-                for i in range(n_replicas)]
-    for r in replicas:
-        rt.add_node(r)
-    t0 = time.perf_counter()
-    rt.run(until=3600, stop_when=lambda: all(app.app_id in r.images
-                                             for r in replicas))
-    fetch_s = time.perf_counter() - t0
-    if not all(app.app_id in r.images for r in replicas):
-        fail("the replicas did not complete the checkpoint's piece set")
+    rt, replicas, fetch_s = swarm_fetch(app, n_replicas)
     prompt = np.asarray(ref["prompt"], np.int32)
     sc = ServeConfig(slots=1, max_len=len(prompt) + len(want) + 1)
     try:
@@ -1960,6 +1959,392 @@ def swarm_restore_phase(torch, cfg=None, want=None, device="cuda",
     if req.out_tokens != want:
         fail("the engine cold-started from the swarm gives other tokens")
     shutil.rmtree(root, ignore_errors=True)
+
+
+# ============ the paper's experiments and the torrent ring ================ #
+# the entries of reference_runs.json that paper_tables_phase runs: Tables
+# I and IV (six volunteers, the paper's largest), Scenarios V, VI and XI
+# at their defaults.  Tables II and III take Table I's and IV's path; the
+# CPU tests hold them (tests/test_torch_paper_tables.py).
+PAPER_RUNS = ("table1", "table4", "scenario_v", "scenario_vi", "xi_r50")
+
+
+@functools.lru_cache(maxsize=1)
+def card():
+    """`nvidia-smi`'s name and power limit of the card, one line."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def paper_tables_phase(scenarios, names=PAPER_RUNS):
+    """The source paper's experiments on the port's scalar protocol: each
+    entry's virtual-time fields must equal reference_runs.json (taken
+    from the reference under PYTHONHASHSEED=0); prints each run's lines
+    and wall seconds (the host's: no device is involved)."""
+    golden = json.loads(RUNS_FILE.read_text())
+    if golden.get("pythonhashseed") != os.environ.get("PYTHONHASHSEED"):
+        fail("expected values were taken under another PYTHONHASHSEED")
+    walls = {}
+    for name in names:
+        entry = golden["runs"][name]
+        t0 = time.perf_counter()
+        res = getattr(scenarios, entry["scenario"])(**entry["params"])
+        walls[name] = time.perf_counter() - t0
+        got = json.loads(json.dumps(
+            scenarios.virtual_time_fields(entry["scenario"], res)))
+        if got != entry["result"]:
+            log(f"[paper] {name} result {json.dumps(got)}")
+            fail(f"{name}: the port's results differ from "
+                 "reference_runs.json")
+        log(f"[paper] {name} {json.dumps(entry['params'])}: wall "
+            f"{walls[name]:.3f}s on the host ({card()}); every virtual-time "
+            f"field equals reference_runs.json")
+    return walls
+
+
+def start_paper_tables():
+    """`paper_tables_phase` in a child process (`--paper-tables`): host
+    work only, so it runs beside the kernel build and the kernel phase,
+    whose times are device times.  Its output goes to a file under
+    build/; `finish_paper_tables` joins it."""
+    import atexit
+    out = ROOT / "build" / "chip_paper_tables.log"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--paper-tables"],
+            stdout=f, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, time.perf_counter()
+
+
+def finish_paper_tables(started, limit=900.0):
+    proc, out, t0 = started
+    t_wait = time.perf_counter()
+    try:
+        proc.wait(timeout=limit)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"the paper tables outlasted {limit} s")
+    for line in out.read_text().splitlines():
+        log(line)
+    if proc.returncode != 0:
+        fail(f"the paper-tables phase failed ({proc.returncode})")
+    log(f"[time] paper-tables phase {time.perf_counter() - t0:.1f}s beside "
+        f"the build and the kernel phase; waited "
+        f"{time.perf_counter() - t_wait:.1f}s for it after them")
+
+
+def swarm_fetch(app, n_replicas):
+    """Replicas R0.. fetch the checkpoint Application ``app`` from its
+    origin through the scalar protocol at 10 Gb/s; returns (runtime,
+    replicas, wall seconds).  Fails unless every replica completes the
+    piece set."""
+    from repro_torch.core import (Agent, AgentConfig, LinkModel, SimRuntime,
+                                  TrackerConfig, TrackerServer)
+    rt = SimRuntime(link=LinkModel(uplink_Bps=1.25e9, downlink_Bps=1.25e9))
+    rt.add_node(TrackerServer(config=TrackerConfig(ping_interval_s=1.0)))
+    acfg = dict(work_timeout_s=60.0, status_interval_s=0.5,
+                piece_timeout_s=3.0, replicate_completed=True)
+    origin = Agent("origin", config=AgentConfig(**acfg))
+    rt.add_node(origin)
+    origin.host_app(app)
+    replicas = [Agent(f"R{i}", config=AgentConfig(**acfg))
+                for i in range(n_replicas)]
+    for r in replicas:
+        rt.add_node(r)
+    t0 = time.perf_counter()
+    rt.run(until=3600, stop_when=lambda: all(app.app_id in r.images
+                                             for r in replicas))
+    if not all(app.app_id in r.images for r in replicas):
+        fail("the replicas did not complete the checkpoint's piece set")
+    return rt, replicas, time.perf_counter() - t0
+
+
+def leaf_digests(tree):
+    """sha256 of each leaf's bytes, by path (tensors or numpy arrays)."""
+    import hashlib
+    import numpy as np
+    from repro_torch.parallel.sharding import tree_leaves_with_path
+    out = {}
+    for path, leaf in tree_leaves_with_path(tree):
+        if not isinstance(leaf, np.ndarray):
+            leaf = leaf.detach().cpu().contiguous().numpy()
+        out[path] = hashlib.sha256(np.ascontiguousarray(leaf)
+                                   .view(np.uint8)).hexdigest()
+    return out
+
+
+def torrent_rank(rank, world, init_file, root, cfg, want, backend, device,
+                 results):
+    """One rank of `torrent_restore_phase` (a spawned process): see there.
+    Reports a dict of its readings, or its traceback, on ``results``."""
+    import traceback
+    try:
+        results.put((rank, "ok", _torrent_rank(rank, world, init_file, root,
+                                               cfg, want, backend, device)))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def _torrent_rank(rank, world, init_file, root, cfg, want, backend, device):
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.checkpoint.swarm_restore import checkpoint_application
+    from repro_torch.models import model as M
+    from repro_torch.parallel import weight_torrent as wt
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    if device == "cuda":
+        # as main() sets them for the serve slice's reference checks
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = init_device_mesh("cuda" if backend == "nccl" else "cpu",
+                                (world,), mesh_dim_names=("pod",))
+        out = {"rank": rank}
+        specs = M.model_param_specs(cfg)
+        store = CheckpointStore(str(Path(root) / "origin"))
+        if backend == "gloo":
+            agent = app_id = None
+            if rank == 0:
+                app = checkpoint_application(store, host_id="origin")
+                app_id = app.app_id
+                rt, (agent,), out["fetch_s"] = swarm_fetch(app, 1)
+                out["fetch_virtual_s"] = rt.now()
+                out["origin_egress"] = rt.tx_bytes.get("origin", 0)
+            prompt = np.asarray(json.loads(SERVE_FILE.read_text())["prompt"],
+                                np.int32)
+            sc = ServeConfig(slots=1, max_len=len(prompt) + len(want) + 1)
+            wt.reset_stats()
+            dist.barrier()
+            t0 = time.perf_counter()
+            eng = ServingEngine.from_swarm(
+                cfg, specs, sc, agent=agent, app_id=app_id,
+                workdir=str(Path(root) / f"rank{rank}"), mesh=mesh,
+                device=device)
+            sync(torch, device)
+            out["from_swarm_s"] = time.perf_counter() - t0
+            out["from_swarm_ring"] = dict(wt.STATS)
+            digests = leaf_digests(eng.params)
+            every = [None] * world
+            dist.all_gather_object(every, digests)
+            out["from_swarm_equal"] = all(d == every[0] for d in every)
+            out["digests"] = digests if rank == 0 else None
+            out["leaf_devices"] = sorted({t.device.type for t in
+                                          _leaves(eng.params)})
+            reset_model_launches()
+            eng.submit(prompt, max_new=len(want))
+            (req,) = list(eng.queue)
+            t0 = time.perf_counter()
+            while eng.queue or eng.active:
+                eng.step()
+            sync(torch, device)
+            out["serve_s"] = time.perf_counter() - t0
+            out["tokens"] = req.out_tokens
+            out["launches"] = model_launches()
+            del eng
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        # straight from the store (only the seeder reads it)
+        wt.reset_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        tree, extra = store.restore_distributed(specs, mesh, device=device)
+        sync(torch, device)
+        out["restore_s"] = time.perf_counter() - t0
+        out["restore_ring"] = dict(wt.STATS)
+        out["extra"] = extra
+        digests = leaf_digests(tree)
+        every = [None] * world
+        dist.all_gather_object(every, digests)
+        out["restore_equal"] = all(d == every[0] for d in every)
+        out["restore_digests"] = digests if rank == 0 else None
+        del tree
+        if backend == "gloo":
+            # the reference mesh check's pipeline: L=4 stages of
+            # tanh(x @ w) on the card, M=6 microbatches of (2, 16), the
+            # activations crossing the gloo group as CPU tensors
+            g = torch.Generator().manual_seed(0)
+            ws = (torch.randn((world, 16, 16), generator=g) * 0.3).to(device)
+            xs = torch.randn((6, 2, 16), generator=g).to(device)
+
+            def stage(w, x):
+                return torch.tanh(x @ w)
+
+            got = pipeline_apply(stage, ws, xs, mesh, axis="pod")
+            seq = xs
+            for s in range(world):
+                seq = stage(ws[s], seq)
+            out["pipeline_err"] = float((got - seq).abs().max())
+            out["pipeline_device"] = got.device.type
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _leaves(tree):
+    from repro_torch.parallel.sharding import tree_leaves_with_path
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def spawn_ranks(world, root, cfg, want, backend, device, limit):
+    """``world`` spawned `torrent_rank` processes on one process group;
+    returns their readings in rank order.  Fails, after killing every
+    rank, when a rank raises, dies or they outlast ``limit`` seconds."""
+    import multiprocessing
+    import queue
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    init_file = Path(root) / f"pg_{backend}"
+    init_file.unlink(missing_ok=True)
+    procs = [ctx.Process(target=torrent_rank, daemon=True,
+                         args=(r, world, str(init_file), str(root), cfg,
+                               want, backend, device, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + limit
+    got, errors = {}, []
+    try:
+        while len(got) < world and not errors:
+            try:
+                rank, status, out = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
+                if dead:
+                    errors.append(f"ranks {dead} exited without a result")
+                elif time.monotonic() > deadline:
+                    errors.append(f"the ranks outlasted {limit} s")
+                continue
+            if status == "error":
+                errors.append(f"rank {rank}:\n{out}")
+            got[rank] = out
+        for p in procs if not errors else ():
+            p.join(timeout=max(0.0, deadline - time.monotonic()) + 10.0)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    if errors:
+        fail(f"torrent ranks ({backend}): " + "\n".join(errors))
+    return [got[r] for r in range(world)]
+
+
+def torrent_restore_phase(torch, cfg=None, want=None, device="cuda",
+                          world=4, limit=900.0):
+    """The torrent ring across ranks.  The 7-layer f32 zamba2 of
+    `swarm_restore_phase` (789 swarm pieces of 4 MB) is saved once;
+    ``world`` spawned ranks join one gloo `DeviceMesh` with axis
+    ("pod",); rank 0 fetches the checkpoint as one replica through the
+    scalar protocol; every rank calls `ServingEngine.from_swarm(...,
+    mesh=mesh, device=device)`, ranks 1.. receiving the params over the
+    ring; every rank's leaves must be bit-equal to rank 0's (a digest per
+    leaf, gathered) and to the saved arrays, and every rank must serve
+    `reference_serve.json`'s greedy tokens on ``device`` (all ranks share
+    cuda:0).  Then `restore_distributed` straight from the store on the
+    same mesh, held to the same leaves, and `pipeline_apply` at the
+    reference check's shapes (stages on ``device``, activations through
+    the gloo group as CPU tensors) within 1e-5 of the sequential result.
+    With two cards or more, `restore_distributed` also runs on an NCCL
+    mesh over min(4, count) cards.  Prints the ring's seconds, each rank's
+    bytes sent and the seeder's upload as a multiple of the image.
+    (A CPU rehearsal passes a small ``cfg`` and the tokens ``want``.)"""
+    import shutil
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params_numpy
+    ref = json.loads(SERVE_FILE.read_text())
+    cfg = cfg or serve_reference_config(ref)
+    want = want or [s["token"] for s in ref["steps"]]
+    root = ROOT / "build" / "chip_torrent"
+    shutil.rmtree(root, ignore_errors=True)
+    tree = init_params_numpy(ref["seed"], M.model_param_specs(cfg))
+    saved = leaf_digests(tree)
+    image = sum(a.nbytes for a in _leaves(tree))
+    t0 = time.perf_counter()
+    CheckpointStore(str(root / "origin")).save(
+        0, tree, extra={"arch": ref["arch"], "seed": ref["seed"]})
+    save_s = time.perf_counter() - t0
+    del tree
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = spawn_ranks(world, root, cfg, want, "gloo", device, limit)
+    wall = time.perf_counter() - t0
+    if outs[0]["digests"] != saved or outs[0]["restore_digests"] != saved:
+        fail("the seeder's restored leaves differ from the saved ones")
+    for o in outs:
+        r = o["rank"]
+        if not (o["from_swarm_equal"] and o["restore_equal"]):
+            fail(f"rank {r}: the ranks' leaves differ")
+        if o["leaf_devices"] != [device]:
+            fail(f"rank {r}: leaves on {o['leaf_devices']}")
+        if o["tokens"] != want:
+            fail(f"rank {r} served {o['tokens']}, expected {want}")
+        if o["extra"] != {"arch": ref["arch"], "seed": ref["seed"]}:
+            fail(f"rank {r}: extra {o['extra']}")
+        if not o["pipeline_err"] <= 1e-5 or o["pipeline_device"] != device:
+            fail(f"rank {r}: pipeline_apply off by {o['pipeline_err']} "
+                 f"on {o['pipeline_device']}")
+        for what in ("from_swarm_ring", "restore_ring"):
+            ring = o[what]
+            sent = ring.get("sent_bytes", 0)
+            if sent != (0 if r == world - 1 else outs[0][what]["sent_bytes"]):
+                fail(f"rank {r} sent {sent} bytes in {what}")
+            log(f"[torrent] {what} rank {r}: ring {ring.get('seconds', 0):.3f}"
+                f"s, {ring.get('ring_steps', 0)} steps, sent {sent} bytes, "
+                f"received {ring.get('received_bytes', 0)} ({card()})")
+    o0 = outs[0]
+    for what, ring, secs in (
+            ("from_swarm", "from_swarm_ring", "from_swarm_s"),
+            ("restore_distributed", "restore_ring", "restore_s")):
+        sent0 = o0[ring]["sent_bytes"]
+        log(f"[torrent] {what} over {world} gloo ranks: {image} image "
+            f"bytes; the seeder uploaded {sent0} bytes = "
+            f"{sent0 / image:.4f} x the image (a fan-out to {world - 1} "
+            f"ranks: {world - 1}.0 x); rank seconds "
+            f"{[round(o[secs], 3) for o in outs]} ({card()})")
+    log(f"[torrent] {ref['arch']} {len(cfg.groups)} groups: saved in "
+        f"{save_s:.2f}s; rank 0 fetched {o0['fetch_virtual_s']:.3f} "
+        f"virtual s, {o0['fetch_s']:.2f} wall s (origin egress "
+        f"{o0['origin_egress']} bytes); every rank's leaves equal the saved "
+        f"ones, on {device}; every rank served {want} in "
+        f"{[round(o['serve_s'], 2) for o in outs]} s (model kernel "
+        f"launches of rank 0's serve: {json.dumps(o0['launches'])}: the "
+        f"engine feeds every token through the decode step); "
+        f"pipeline_apply max err "
+        f"{max(o['pipeline_err'] for o in outs):.3e}; ranks' wall "
+        f"{wall:.1f}s ({card()})")
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    if n_cards >= 2:
+        k = min(4, n_cards)
+        nccl = spawn_ranks(k, root, cfg, want, "nccl", device, limit)
+        for o in nccl:
+            if o["restore_digests"] not in (None, saved) or \
+                    not o["restore_equal"]:
+                fail(f"NCCL rank {o['rank']}: leaves differ")
+        sent0 = nccl[0]["restore_ring"]["sent_bytes"]
+        log(f"[torrent] restore_distributed over {k} NCCL ranks (one card "
+            f"each): ring {nccl[0]['restore_ring']['seconds']:.3f}s, seeder "
+            f"upload {sent0 / image:.4f} x the image, rank seconds "
+            f"{[round(o['restore_s'], 3) for o in nccl]} ({card()})")
+    else:
+        log(f"[torrent] the NCCL ring did not run: {n_cards} card(s), and "
+            "NCCL refuses two ranks on one card")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"wall_s": wall, "outs": outs}
 
 
 # =============== MoE and encoder-decoder slice =========================== #
@@ -2436,6 +2821,10 @@ def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:] == ["--paper-tables"]:
+        from repro_torch import scenarios
+        paper_tables_phase(scenarios)
+        return
     import torch
     if not torch.cuda.is_available():
         fail("torch finds no CUDA device")
@@ -2446,6 +2835,7 @@ def main():
         f"cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()}")
 
+    tables = start_paper_tables()
     t0 = time.perf_counter()
     kernels_build.load()
     info = kernels_build.BUILD_INFO
@@ -2456,6 +2846,7 @@ def main():
             log(f"[build] {line.strip()}")
 
     records = kernel_phase(torch, sk)
+    finish_paper_tables(tables)
 
     sk.reset_launches()
     t0 = time.perf_counter()
@@ -2508,6 +2899,14 @@ def main():
         if counts["flash_fwd"] <= 0:
             fail(f"flash_fwd never launched on the {name} path")
 
+    # ---- the torrent ring across ranks (the tables ran beside the build) -- #
+    torch.cuda.empty_cache()
+    log(f"[torrent] this process holds {torch.cuda.memory_allocated()} "
+        f"bytes of the card before spawning the ranks")
+    t0 = time.perf_counter()
+    torrent_restore_phase(torch)
+    log(f"[time] torrent-restore phase {time.perf_counter() - t0:.1f}s")
+
     kernels = []
     for name in ("rarest_keys", "island_has", "match_requests", "flash_fwd",
                  "ssd_scan"):
@@ -2530,10 +2929,7 @@ def main():
             # the bf16 prefill + decode of qwen3-moe and of seamless
             "moe_launches": slice_launches["moe"].get(kernel, 0),
             "encdec_launches": slice_launches["encdec"].get(kernel, 0)})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,9 +7,10 @@ Layout:
 
 Pieces (not per-tensor files) are the unit of both I/O and swarm exchange:
 replicas receive them host-side through the swarm (core/swarm's
-rarest-first plan; the reference's intra-pod ppermute ring comes with the
-meshes slice).  `async_save` runs serialisation off-thread so the train
-loop never blocks (the step's arrays are snapshotted to host first).
+rarest-first plan) or, inside a pod, over the torrent ring of
+`parallel/weight_torrent.py` (`restore_distributed`).  `async_save` runs
+serialisation off-thread so the train loop never blocks (the step's
+arrays are snapshotted to host first).
 
 Every committed step also carries `swarm.json`: a `PieceManifest` (the
 torrent metainfo) over the step's canonical *image* — manifest.json plus
@@ -313,15 +314,60 @@ class CheckpointStore:
         return tree, manifest["extra"]
 
     def restore_distributed(self, template, mesh, step: Optional[int] = None,
-                            pod_axis: str = "pod"):
-        """Torrent restore over a pod mesh (the reference's
-        `weight_torrent` ring): not ported yet."""
-        raise NotImplementedError(MESH_RESTORE)
+                            pod_axis: str = "pod", *, device="cuda"
+                            ) -> Tuple[Any, dict]:
+        """Torrent restore: the seeder pod reads, the pieces ride the ring.
+
+        ``mesh`` is a `DeviceMesh` whose ``pod_axis`` names a process
+        group, and every rank of that group calls this.  Rank 0 of the
+        group (the seeder) restores from the store; the other ranks read
+        nothing from it: they receive the seeder's bytes through
+        `weight_torrent.torrent_broadcast` (`pod_restore`), and the
+        manifest's ``extra`` too.  Leaves land on their template's device
+        (``device`` for `ParamSpec` leaves).  A ``mesh`` of None, or one
+        without ``pod_axis``, is `restore`.
+        """
+        return pod_restore(
+            lambda: self.restore(template, step, device=device), template,
+            mesh, pod_axis, device)
 
 
-MESH_RESTORE = ("the torrent restore over a mesh (restore_distributed, "
-                "torrent_broadcast) comes with the meshes slice (ROADMAP "
-                "queue 1, item 5); restore() a single device")
+def _allocate(template, device):
+    """Uninitialised tensors shaped after ``template``: a tensor leaf's
+    device and dtype, or a `ParamSpec`'s dtype on ``device``."""
+    def empty(key, want):
+        if isinstance(want, torch.Tensor):
+            return torch.empty_like(want)
+        if isinstance(want, ParamSpec):
+            return torch.empty(want.shape, dtype=want.dtype,
+                               device=resolve_device(device))
+        raise TypeError(f"template leaf {key}: expected a tensor or a "
+                        f"ParamSpec, got {type(want).__name__}")
+    return _rebuild(template, empty)
+
+
+def pod_restore(load, template, mesh, pod_axis: str = "pod", device="cuda"):
+    """``load()`` -> (tree, extra) on the seeder, rank 0 of ``mesh``'s
+    ``pod_axis``, and its result on every rank of the axis: the other
+    ranks never call ``load``; they allocate ``template``'s leaves and
+    receive the seeder's bytes over the torrent ring (pieces of
+    ``RING_PIECE_BYTES``), and ``extra`` by ``broadcast_object_list``.
+    Without a mesh, or without the axis, this is ``load()``."""
+    import torch.distributed as dist
+    from repro_torch.parallel import weight_torrent as wt
+    group = wt.axis_group(mesh, pod_axis)
+    if group is None:
+        return load()
+    if dist.get_rank(group) == 0:
+        tree, extra = load()
+    else:
+        tree, extra = _allocate(template, device), None
+    box = [extra]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    tree = wt.torrent_broadcast(tree, mesh, axis=pod_axis, seeder=0,
+                                n_pieces=wt.ring_pieces(tree))
+    return tree, box[0]
 
 
 def _snapshot(tree):

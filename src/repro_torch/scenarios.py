@@ -1,24 +1,43 @@
-"""Scenario runs of the swarm on `repro_torch`.
+"""Scenario runs of the volunteer cloud and its swarm on `repro_torch`.
 
-`scenario_vii` (flash crowd), `scenario_viii` (chaos: loss, duplication,
-jitter, churn and a partition), `scenario_ix` (topology-aware P4P peer
-selection on a WAN) and `scenario_x` (versioned-manifest delta
-distribution) are the reference's `benchmarks/paper_tables.py` functions
-of the same names, unchanged in behaviour, with `device=` in place of
-`backend=`: the batched hub runs its kernels on that device ("cuda" by
-default; "cpu" takes the plain PyTorch versions) and the result reports
-it under "device".  `scenario_viii` also takes `batched=` (the reference
-`ChaosScenario`'s own batched mode; off by default, as there).
-Virtual-time results (`makespan_s`, `full_replication_s`,
-`p99_completion_s`, `cross_isp_bytes`, `origin_up_mb`, `events`, the
-upgrade and scratch makespans and traffic) are the reference's bit for
-bit under the same `PYTHONHASHSEED`: the protocol iterates sets of node
-names, so their order — and with it the trace — follows the process's
-string hash seed.
+The reference's `benchmarks/paper_tables.py`, function for function:
+
+- `table1`-`table4`: the source paper's Scenarios I-IV (Tables I-IV),
+  2,000,000 to 3,000,000 integers on up to six volunteers, on the
+  calibration at the top of this module; `scenario_v` (the piece-wise
+  swarm against a single seeder, and origin failover), `scenario_vi`
+  (choking and endgame cancels) and `scenario_xi` (a flash crowd of
+  serving replicas cold-starting from a multi-GB checkpoint: origin-only
+  against swarm, flat and on ISP islands, and the origin's death).  These
+  are scalar protocol runs: no device is involved.
+- `scenario_vii` (flash crowd), `scenario_viii` (chaos: loss,
+  duplication, jitter, churn and a partition), `scenario_ix`
+  (topology-aware P4P peer selection on a WAN) and `scenario_x`
+  (versioned-manifest delta distribution), with `device=` in place of
+  `backend=`: the batched hub runs its kernels on that device ("cuda" by
+  default; "cpu" takes the plain PyTorch versions) and the result
+  reports it under "device".  `scenario_viii` also takes `batched=` (the
+  reference `ChaosScenario`'s own batched mode; off by default, as
+  there).
+
+Behaviour and printed lines are the reference's; each table's result
+also carries its run's `ScenarioOut` under "scenario_out"
+(`scenario_out_fields`).  Virtual-time results (`virtual_time_fields`:
+makespans, cycles, per-cycle seconds, leeched MB, egress, events,
+times to ready, cross-ISP bytes) are the reference's bit for bit under
+the same `PYTHONHASHSEED`: the protocol iterates sets of node names, so
+their order — and with it the trace — follows the process's string hash
+seed.
+
+    python -m repro_torch.scenarios [--device cpu] [name ...]
+
+runs the named entries of `ALL_TABLES` (all of them by default) and
+prints the reference's lines.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core import (Agent, AgentConfig, ChaosScenario, SimRuntime,
                               TrackerConfig, TrackerServer, make_prime_app)
@@ -45,13 +64,30 @@ _X_CHAOS_FIELDS = ("converged", "reused_pieces", "stale_have_demoted",
                    "stale_piece_data", "stale_reqs_refused", "stale_accepts")
 
 
+# the scalar runs: every field of their results is virtual time or
+# derived from it
+TABLES = ("table1", "table2", "table3", "table4")
+SCALAR = TABLES + ("scenario_v", "scenario_vi", "scenario_xi")
+
+
+def _spell(d: dict) -> dict:
+    """`d` with its (app_id, node) tuple keys spelled "app_id/node"."""
+    return {"/".join(k) if isinstance(k, tuple) else k: v
+            for k, v in d.items()}
+
+
 def virtual_time_fields(scenario: str, res: dict) -> dict:
-    """The fields of `res`, a result of `scenario` ("scenario_vii",
-    "scenario_viii", "scenario_ix", "scenario_x" or "chaos"), that do not
-    depend on the machine."""
+    """The fields of `res`, a result of `scenario` (a name of
+    `ALL_TABLES`, or "chaos"), that do not depend on the machine, in a
+    JSON-safe spelling."""
     def pick(d, keys):
         return {k: d[k] for k in keys}
 
+    if scenario in TABLES:
+        return {k: _spell(v) if isinstance(v, dict) else v
+                for k, v in res.items()}
+    if scenario in SCALAR:
+        return dict(res)
     if scenario == "scenario_vii":
         return pick(res, _FLASH_FIELDS)
     if scenario == "scenario_ix":
@@ -68,6 +104,366 @@ def virtual_time_fields(scenario: str, res: dict) -> dict:
             out["chaos"] = pick(res["chaos"], _X_CHAOS_FIELDS)
         return out
     raise ValueError(f"unknown scenario {scenario!r}")
+
+
+# ---------------- the paper's Tables I-IV (Scenarios I-IV) ----------------- #
+# Calibration: app1 = primes 3..2,000,000 in 2059 parts (host-class
+# per-cycle 4.93 s, VM-class 5.51 s: Table I's sequential rows); app2 =
+# primes 2,000,000..3,000,000 in 1080 parts (21.21 s, 21.66 s: Table II's).
+# The per-cycle protocol / VM overhead, 6.35 - 5.51 = 0.84 s, comes from
+# Scenario I (parallel average against the sequential VM average) and is
+# applied unchanged to all four tables, so II-IV are predictions.  The
+# second machine class of Scenario IV (an i3 and its VMs) runs at ~8.1/10.8
+# = 0.75 of the VM class.  The protocol (tracker, agents, leases, voting)
+# runs for real on the discrete-event runtime; only the per-cycle compute
+# cost is synthetic.
+
+# paper-measured sequential per-cycle seconds
+APP1 = dict(lo=3, hi=2_000_000, parts=2059, host_cycle=4.93, vm_cycle=5.51,
+            data_mb=8.33)
+APP2 = dict(lo=2_000_000, hi=3_000_000, parts=1080, host_cycle=21.21,
+            vm_cycle=21.66, data_mb=4.23)
+VM_SPEED = APP1["host_cycle"] / APP1["vm_cycle"]        # 0.895
+I3_SPEED = VM_SPEED * 0.75                              # scenario IV machines
+# per-cycle overhead in reference work units: VM-observed 0.84s x VM speed
+OVERHEAD_S = (6.35 - 5.51) * VM_SPEED                   # 0.752
+
+
+def _mk_app(app_id, host, spec, m_min=1):
+    per_number = spec["host_cycle"] * spec["parts"] / (spec["hi"] - spec["lo"])
+    n = spec["parts"]
+    part_bytes = int(spec["data_mb"] * 2**20 / n)
+    return make_prime_app(app_id, host, spec["lo"], spec["hi"], n,
+                          app_bytes=4096, part_data_bytes=part_bytes,
+                          m_min=m_min, sim_time_per_number=per_number)
+
+
+@dataclass
+class ScenarioOut:
+    makespan_h: Dict[str, float]
+    cycles: Dict[Tuple[str, str], int]
+    avg_s: Dict[Tuple[str, str], float]
+    data_mb: Dict[Tuple[str, str], float]
+    host_metrics: Dict[str, dict]
+
+
+def run_scenario(apps: dict, speeds: dict, self_leech: bool = False,
+                 until_h: float = 48.0, m_min: int = 1) -> ScenarioOut:
+    """apps: app_id -> (host_id, spec); speeds: node_id -> speed."""
+    rt = SimRuntime()
+    rt.add_node(TrackerServer(config=TrackerConfig(ping_interval_s=5.0)))
+    agents = {}
+    for nid, sp in speeds.items():
+        a = Agent(nid, config=AgentConfig(
+            work_timeout_s=600.0, status_interval_s=5.0,
+            cycle_overhead_s=OVERHEAD_S, self_leech=self_leech,
+            max_parallel_apps=2))
+        agents[nid] = a
+        rt.add_node(a, speed=sp)
+    objs = {}
+    for app_id, (host, spec) in apps.items():
+        app = _mk_app(app_id, host, spec, m_min)
+        agents[host].host_app(app)
+        objs[app_id] = (app, agents[host])
+
+    rt.run(until=until_h * H,
+           stop_when=lambda: all(a.done for a, _ in objs.values()))
+
+    out = ScenarioOut({}, {}, {}, {}, {})
+    for app_id, (app, host) in objs.items():
+        out.makespan_h[app_id] = host.completed_at.get(app_id, rt.now()) / H
+        out.host_metrics[app_id] = host.metrics[app_id].as_dict()
+        for nid, ag in agents.items():
+            c = ag.completed_cycles.get(app_id, 0)
+            if c:
+                out.cycles[(app_id, nid)] = c
+                out.avg_s[(app_id, nid)] = ag.leech_time[app_id] / c
+                out.data_mb[(app_id, nid)] = ag.leech_bytes[app_id] / 2**20
+    return out
+
+
+def scenario_out_fields(out) -> dict:
+    """A `ScenarioOut` (this module's or the reference's) as a JSON-safe
+    dict: its (app_id, node) keys spelled "app_id/node"."""
+    return {"makespan_h": dict(out.makespan_h), "cycles": _spell(out.cycles),
+            "avg_s": _spell(out.avg_s), "data_mb": _spell(out.data_mb),
+            "host_metrics": {k: dict(v) for k, v in out.host_metrics.items()}}
+
+
+def table1(verbose: bool = True) -> dict:
+    """Scenario I: three volunteers, one application."""
+    out = run_scenario({"app1": ("Y", APP1)},
+                       {"Y": VM_SPEED, "X": VM_SPEED, "Z": VM_SPEED})
+    t = out.makespan_h["app1"]
+    seq_host, seq_vm = 2.82, 3.15
+    res = {
+        "parallel_h": t,
+        "speedup_vs_host": seq_host / t,
+        "speedup_vs_vm": seq_vm / t,
+        "paper_speedup_vs_host": 1.56,
+        "paper_speedup_vs_vm": 1.73,
+        "cycles": {n: out.cycles.get(("app1", n), 0) for n in ("X", "Z")},
+        "paper_cycles": {"X": 1031, "Z": 1028},
+        "avg_s": {n: out.avg_s.get(("app1", n), 0.0) for n in ("X", "Z")},
+        "paper_avg_s": 6.35,
+    }
+    res["scenario_out"] = scenario_out_fields(out)
+    if verbose:
+        print(f"[table1] parallel={t:.2f}h (paper 1.82/1.81) "
+              f"speedup host={res['speedup_vs_host']:.2f} (paper 1.56) "
+              f"vm={res['speedup_vs_vm']:.2f} (paper 1.73) "
+              f"cycles={res['cycles']} avg={res['avg_s']}")
+    return res
+
+
+def table2(verbose: bool = True) -> dict:
+    """Scenario II: three volunteers, two applications.
+
+    X hosts app1 (leeches app2); Z hosts app2 (leeches app1); Y leeches both.
+    Paper headline: both apps complete ~33% faster than sequential app2."""
+    out = run_scenario({"app1": ("X", APP1), "app2": ("Z", APP2)},
+                       {"X": VM_SPEED, "Y": VM_SPEED, "Z": VM_SPEED})
+    makespan = max(out.makespan_h.values())
+    seq_app2_vm = 6.73
+    res = {
+        "makespan_h": makespan,
+        "app1_h": out.makespan_h["app1"],
+        "app2_h": out.makespan_h["app2"],
+        "faster_than_seq_pct": 100.0 * (1 - makespan / seq_app2_vm),
+        "paper_faster_pct": 33.0,
+        "cycles": {k: v for k, v in out.cycles.items()},
+        "paper_cycles": {("app1", "Y"): 139, ("app1", "Z"): 1920,
+                         ("app2", "Y"): 462, ("app2", "X"): 618},
+    }
+    res["scenario_out"] = scenario_out_fields(out)
+    if verbose:
+        print(f"[table2] makespan={makespan:.2f}h (paper ~4.48) "
+              f"faster={res['faster_than_seq_pct']:.0f}% (paper ~33%) "
+              f"cycles={res['cycles']}")
+    return res
+
+
+def table3(verbose: bool = True) -> dict:
+    """Scenario III: II + hosts also run their own applications."""
+    out = run_scenario({"app1": ("X", APP1), "app2": ("Z", APP2)},
+                       {"X": VM_SPEED, "Y": VM_SPEED, "Z": VM_SPEED},
+                       self_leech=True)
+    res = {
+        "app1_h": out.makespan_h["app1"],
+        "app2_h": out.makespan_h["app2"],
+        "paper_app1_h": 2.88,     # slowest client row (Y)
+        "paper_app2_h": 3.50,
+        "cycles": dict(out.cycles),
+        "paper_cycles": {("app1", "X"): 736, ("app1", "Y"): 635,
+                         ("app1", "Z"): 688, ("app2", "X"): 401,
+                         ("app2", "Y"): 329, ("app2", "Z"): 350},
+    }
+    res["scenario_out"] = scenario_out_fields(out)
+    if verbose:
+        print(f"[table3] app1={res['app1_h']:.2f}h (paper ~2.88) "
+              f"app2={res['app2_h']:.2f}h (paper ~3.50) cycles-sum="
+              f"{sum(v for (a, _), v in out.cycles.items() if a == 'app1')}/"
+              f"{sum(v for (a, _), v in out.cycles.items() if a == 'app2')}")
+    return res
+
+
+def table4(verbose: bool = True) -> dict:
+    """Scenario IV: six volunteers (3 VM-class + 3 i3-class), two apps."""
+    speeds = {"X": VM_SPEED, "Y": VM_SPEED, "Z": VM_SPEED,
+              "X'": I3_SPEED, "Y'": I3_SPEED, "Z'": I3_SPEED}
+    out = run_scenario({"app1": ("X", APP1), "app2": ("Z", APP2)},
+                       speeds, self_leech=True)
+    seq_app1_vm, seq_app2_vm = 3.15, 6.73
+    res = {
+        "app1_h": out.makespan_h["app1"],
+        "app2_h": out.makespan_h["app2"],
+        "speedup_app1": seq_app1_vm / out.makespan_h["app1"],
+        "speedup_app2": seq_app2_vm / out.makespan_h["app2"],
+        "paper_speedup_app1": 3.5,
+        "paper_speedup_app2": 3.3,
+        "cycles": dict(out.cycles),
+        "paper_app1_h": 0.89, "paper_app2_h": 1.94,
+    }
+    res["scenario_out"] = scenario_out_fields(out)
+    if verbose:
+        print(f"[table4] app1={res['app1_h']:.2f}h (paper ~0.89) "
+              f"app2={res['app2_h']:.2f}h (paper ~1.94) "
+              f"speedups={res['speedup_app1']:.2f}/{res['speedup_app2']:.2f} "
+              f"(paper 3.5/3.3)")
+    return res
+
+
+def scenario_v(verbose: bool = True, n_volunteers: int = 12,
+               image_mb: float = 64.0, n_pieces: int = 16,
+               n_parts: int = 48, uplink_mbps: float = 100.0) -> dict:
+    """Scenario V (paper §V extension): piece-wise multi-seeder swarm.
+
+    Not in the paper's tables — this is the extension §V names ("broken to
+    pieces like regular file sharing in torrent") run through the live
+    protocol.  Compares single-seeder (monolithic APP_DATA) against the
+    swarm on a large app image with per-node uplink contention, and shows
+    the app surviving origin-host death because replica seeders take over
+    DIST/VAL.
+    """
+    image_bytes = int(image_mb * 1e6)
+    uplink_Bps = uplink_mbps * 1e6 / 8
+
+    def build(swarm: bool):
+        rt = SimRuntime(link=LinkModel(uplink_Bps=uplink_Bps))
+        rt.add_node(TrackerServer(config=TrackerConfig(ping_interval_s=2.0)))
+        host = Agent("host", config=AgentConfig(work_timeout_s=600.0))
+        rt.add_node(host)
+        app = make_prime_app("appv", "host", 3, 48_000, n_parts=n_parts,
+                             sim_time_per_number=1e-4, swarm=swarm,
+                             app_bytes=image_bytes,
+                             piece_bytes=image_bytes // n_pieces)
+        host.host_app(app)
+        leechers = []
+        for i in range(n_volunteers):
+            a = Agent(f"V{i}", config=AgentConfig(work_timeout_s=600.0))
+            rt.add_node(a)
+            leechers.append(a)
+        def done():
+            if app.done:
+                return True
+            return any(a.apps.get("appv") and a.apps["appv"].done
+                       for a in leechers)
+        return rt, app, leechers, done
+
+    # (a) single seeder: the origin re-ships the image with every part
+    rt, app, _, done = build(swarm=False)
+    rt.run(until=4 * H, stop_when=done)
+    single = {"makespan_s": rt.now(), "done": done(),
+              "origin_up_mb": rt.tx_bytes.get("host", 0) / 1e6}
+
+    # (b) swarm: image moves once as pieces, every leecher re-seeds
+    rt, app, _, done = build(swarm=True)
+    rt.run(until=4 * H, stop_when=done)
+    swarm_res = {"makespan_s": rt.now(), "done": done(),
+                 "origin_up_mb": rt.tx_bytes.get("host", 0) / 1e6}
+
+    # (c) churn: origin dies mid-run (plus one leecher), replicas take over
+    rt, app, leechers, done = build(swarm=True)
+    # wait until at least one replica seeder formed, then kill the origin
+    rt.run(until=4 * H, stop_when=lambda: any(
+        "appv" in a.images for a in leechers))
+    killed_at = rt.now()
+    rt.nodes.pop("host", None)
+    rt.run(until=killed_at + 6.0)
+    rt.nodes.pop(leechers[0].node_id, None)   # node churn on top
+    rt.run(until=4 * H, stop_when=done)
+    failover = {"makespan_s": rt.now(), "done": done(),
+                "origin_died_at_s": killed_at}
+
+    res = {
+        "single": single, "swarm": swarm_res, "failover": failover,
+        "origin_bytes_reduction": (single["origin_up_mb"]
+                                   / max(swarm_res["origin_up_mb"], 1e-9)),
+        "makespan_speedup": (single["makespan_s"]
+                             / max(swarm_res["makespan_s"], 1e-9)),
+        # the core/swarm.py round bound the live swarm should approach
+        "bound_naive_rounds": n_volunteers * n_pieces,
+        "bound_swarm_rounds": n_pieces + max(1, n_volunteers).bit_length(),
+    }
+    if verbose:
+        dnf = "" if single["done"] else " (single DNF at cap — ratios are"
+        dnf += "" if single["done"] else " lower bounds)"
+        print(f"[scenarioV] single: makespan={single['makespan_s']:.0f}s "
+              f"origin_up={single['origin_up_mb']:.0f}MB | swarm: "
+              f"makespan={swarm_res['makespan_s']:.0f}s "
+              f"origin_up={swarm_res['origin_up_mb']:.0f}MB | "
+              f"origin bytes /{res['origin_bytes_reduction']:.0f}, "
+              f"makespan x{res['makespan_speedup']:.0f} | failover "
+              f"done={failover['done']} t={failover['makespan_s']:.0f}s"
+              f"{dnf}")
+    return res
+
+
+def _duplicate_execs(agents, app_id: str, m_min: int) -> int:
+    """Completed part executions beyond the m_min the quorum needs,
+    summed over parts (the waste endgame PART_CANCEL exists to cap)."""
+    import collections as _c
+    per_part = _c.Counter(part_id for a in agents
+                          for (_, aid, part_id) in a.results_log
+                          if aid == app_id)
+    return sum(max(0, n - m_min) for n in per_part.values())
+
+
+def scenario_vi(verbose: bool = True, n_volunteers: int = 24,
+                image_mb: float = 32.0, n_pieces: int = 16,
+                n_parts: int = 96, m_min: int = 2,
+                uplink_mbps: float = 100.0) -> dict:
+    """Scenario VI: the PieceExchange engine's choke scheduler + endgame.
+
+    Three swarm variants at N=24 with symmetric uplink/downlink
+    contention:
+
+      * baseline — the first swarm engine: no choking, no cancel messages;
+        duplicate part executions from seeders' drained partitions run to
+        completion and are wasted.
+      * unchoked — cancels on (PIECE_CANCEL/PART_CANCEL), choking off:
+        shows what endgame reconciliation alone buys.
+      * choked   — full engine: fixed upload slots + optimistic unchoke
+        on top of endgame cancels.
+
+    Reports origin egress, makespan and duplicate-execution counts.
+    """
+    image_bytes = int(image_mb * 1e6)
+    link_Bps = uplink_mbps * 1e6 / 8
+
+    def run(choke: bool, endgame: bool) -> dict:
+        rt = SimRuntime(link=LinkModel(uplink_Bps=link_Bps,
+                                       downlink_Bps=link_Bps))
+        rt.add_node(TrackerServer(config=TrackerConfig(ping_interval_s=2.0)))
+        cfg = dict(work_timeout_s=600.0, choke=choke, endgame=endgame,
+                   rechoke_interval_s=5.0)
+        host = Agent("host", config=AgentConfig(**cfg))
+        rt.add_node(host)
+        app = make_prime_app("appvi", "host", 3, 48_000, n_parts=n_parts,
+                             sim_time_per_number=1e-2, m_min=m_min,
+                             swarm=True, app_bytes=image_bytes,
+                             piece_bytes=image_bytes // n_pieces)
+        host.host_app(app)
+        agents = [host]
+        for i in range(n_volunteers):
+            a = Agent(f"V{i}", config=AgentConfig(**cfg))
+            # heterogeneous volunteers (cf. Scenario IV's mixed machine
+            # classes): a homogeneous swarm completes duplicate leases in
+            # lockstep, which no cancel message can race
+            rt.add_node(a, speed=1.0 - 0.4 * i / max(n_volunteers, 1))
+            agents.append(a)
+
+        def done():
+            return app.done or any(
+                a.apps.get("appvi") and a.apps["appvi"].done
+                for a in agents[1:])
+        rt.run(until=8 * H, stop_when=done)
+        return {"done": done(), "makespan_s": rt.now(),
+                "origin_up_mb": rt.tx_bytes.get("host", 0) / 1e6,
+                "dup_execs": _duplicate_execs(agents, "appvi", m_min),
+                "cancelled_parts": sum(a.cancelled_parts for a in agents),
+                "piece_cancels": sum(a.px.cancels_sent for a in agents)}
+
+    baseline = run(choke=False, endgame=False)   # no choke, no cancels
+    unchoked = run(choke=False, endgame=True)
+    choked = run(choke=True, endgame=True)
+    res = {
+        "baseline": baseline, "unchoked": unchoked, "choked": choked,
+        "dup_exec_reduction": (baseline["dup_execs"]
+                               - choked["dup_execs"]),
+    }
+    if verbose:
+        for name in ("baseline", "unchoked", "choked"):
+            r = res[name]
+            print(f"[scenarioVI] {name}: makespan={r['makespan_s']:.0f}s "
+                  f"origin_up={r['origin_up_mb']:.0f}MB "
+                  f"dup_execs={r['dup_execs']} "
+                  f"cancelled={r['cancelled_parts']} "
+                  f"piece_cancels={r['piece_cancels']} "
+                  f"done={r['done']}")
+        print(f"[scenarioVI] endgame cancels cut duplicate executions by "
+              f"{res['dup_exec_reduction']} vs the no-cancel baseline")
+    return res
 
 
 def scenario_vii(verbose: bool = True, n_volunteers: int = 200,
@@ -738,3 +1134,196 @@ def _scenario_x_chaos(n_volunteers: int = 48, image_mb: float = 4.0,
         }
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def scenario_xi(verbose: bool = True, n_replicas: int = 50,
+                ckpt_mb: float = 2048.0, n_pieces: int = 128,
+                n_islands: int = 8, uplink_mbps: float = 200.0,
+                until_h: float = 48.0, seed: int = 11,
+                include_chaos: bool = True,
+                include_islands: bool = True) -> dict:
+    """Scenario XI: swarm-served checkpoints — replica cold-start flash
+    crowd pulling a multi-GB sharded checkpoint.
+
+    The production story behind the ROADMAP's "close the loop with the
+    jax side": an autoscaling event brings up R fresh serving replicas at
+    t=0 and all of them need the same committed checkpoint.  The
+    checkpoint is a pure-replication swarm Application (no work parts —
+    `checkpoint/swarm_restore.checkpoint_application` builds the same
+    shape from a real `CheckpointStore` step; here the multi-GB image is
+    simulated bytes on the same protocol).  Two modes per topology:
+
+      * ``origin`` — the blob-store baseline: every replica pulls every
+        piece straight from the origin (`AgentConfig.fetch_from`), which
+        serialises R full images through one uplink;
+      * ``swarm``  — replicas exchange pieces leecher-to-seeder, so the
+        origin uploads each piece roughly once.
+
+    Run on a flat LAN and on an `n_islands` WAN (tracker serves the ALTO
+    COST_MAP, scalar P4P selection).  Headline metrics per run:
+    **ttr_p99_s** (p99 time-to-ready across replicas — a replica is
+    ready the moment its verified piece set completes and it can load
+    params) and **origin_egress_bytes**.  Targets: >=10x origin egress
+    cut, >=3x p99 time-to-ready.  Chaos overlay: the origin dies as soon
+    as the first replica is ready and every replica must still become
+    ready from replica seeders alone.
+    """
+    from repro_torch.core.workunit import Application
+
+    ckpt_bytes = int(ckpt_mb * 1e6)
+    link_Bps = uplink_mbps * 1e6 / 8
+    app_id = "ckpt"
+    rep_ids = [f"R{i:03d}" for i in range(n_replicas)]
+
+    def _one(origin_only: bool, islands: int, chaos: bool = False) -> dict:
+        topo = Topology.make(["origin"] + rep_ids, islands, seed=seed) \
+            if islands else None
+        rt = SimRuntime(link=LinkModel(uplink_Bps=link_Bps,
+                                       downlink_Bps=link_Bps),
+                        topology=topo)
+        rt.add_node(TrackerServer(config=TrackerConfig(ping_interval_s=5.0),
+                                  topology=topo))
+        cfg = dict(work_timeout_s=600.0, status_interval_s=5.0,
+                   rechoke_interval_s=5.0, replicate_completed=True,
+                   max_replica_seeders=8)
+        origin = Agent("origin", config=AgentConfig(**cfg))
+        rt.add_node(origin)
+        # the checkpoint as a pure-replication Application: real deploys
+        # host checkpoint_application(store); the benchmark's multi-GB
+        # image stays synthetic so only metadata ever materialises
+        app = Application(app_id, "origin", app_bytes=ckpt_bytes,
+                          parts=[], swarm=True,
+                          piece_bytes=ckpt_bytes // n_pieces)
+        origin.host_app(app)
+        rcfg = dict(cfg, fetch_from=("origin",)) if origin_only else cfg
+        replicas = []
+        for nid in rep_ids:
+            a = Agent(nid, config=AgentConfig(**rcfg))
+            rt.add_node(a)
+            replicas.append(a)
+
+        died_at = None
+        if chaos:
+            # flash crowd starts; the origin dies the moment the first
+            # replica turns seeder (scenario V's failover pattern)
+            rt.run(until=until_h * H,
+                   stop_when=lambda: any(app_id in a.images
+                                         for a in replicas))
+            died_at = rt.now()
+            rt.nodes.pop("origin", None)
+        not_ready = list(replicas)
+
+        def all_ready():
+            not_ready[:] = [a for a in not_ready
+                            if app_id not in a.images]
+            return not not_ready
+
+        rt.run(until=until_h * H, stop_when=all_ready)
+        times = sorted(a.image_completed_at.get(app_id, rt.now())
+                       for a in replicas)
+        p99 = times[min(int(0.99 * (len(times) - 1)), len(times) - 1)]
+        n_ready = sum(1 for a in replicas if app_id in a.images)
+        out = {
+            "mode": "chaos" if chaos
+            else ("origin" if origin_only else "swarm"),
+            "islands": islands,
+            "ready": n_ready == n_replicas,
+            "replicas_ready": n_ready,
+            "ttr_p99_s": p99,
+            "ttr_max_s": times[-1] if times else 0.0,
+            "ttr_median_s": times[len(times) // 2] if times else 0.0,
+            "origin_egress_bytes": float(rt.tx_bytes.get("origin", 0)),
+            "cross_isp_bytes": rt.cross_isp_bytes,
+            "events": rt.events_processed,
+        }
+        if died_at is not None:
+            out["origin_died_at_s"] = died_at
+        return out
+
+    flat_origin = _one(origin_only=True, islands=0)
+    flat_swarm = _one(origin_only=False, islands=0)
+    res = {
+        "n_replicas": n_replicas,
+        "ckpt_mb": ckpt_mb,
+        "n_pieces": n_pieces,
+        "n_islands": n_islands,
+        "seed": seed,
+        "flat": {"origin": flat_origin, "swarm": flat_swarm},
+        "egress_reduction_flat": flat_origin["origin_egress_bytes"]
+        / max(flat_swarm["origin_egress_bytes"], 1.0),
+        "ttr_p99_speedup_flat": flat_origin["ttr_p99_s"]
+        / max(flat_swarm["ttr_p99_s"], 1e-9),
+    }
+    all_ready = flat_origin["ready"] and flat_swarm["ready"]
+    if include_islands:
+        isl_origin = _one(origin_only=True, islands=n_islands)
+        isl_swarm = _one(origin_only=False, islands=n_islands)
+        res["islands"] = {"origin": isl_origin, "swarm": isl_swarm}
+        res["egress_reduction_islands"] = \
+            isl_origin["origin_egress_bytes"] \
+            / max(isl_swarm["origin_egress_bytes"], 1.0)
+        res["ttr_p99_speedup_islands"] = isl_origin["ttr_p99_s"] \
+            / max(isl_swarm["ttr_p99_s"], 1e-9)
+        all_ready = all_ready and isl_origin["ready"] and isl_swarm["ready"]
+    if include_chaos:
+        chaos = _one(origin_only=False, islands=0, chaos=True)
+        res["chaos"] = chaos
+        all_ready = all_ready and chaos["ready"]
+    res["all_ready"] = all_ready
+    if verbose:
+        o, s = flat_origin, flat_swarm
+        print(f"[scenarioXI] R={n_replicas} ckpt={ckpt_mb:.0f}MB flat: "
+              f"ttr_p99 {o['ttr_p99_s']:.0f} -> {s['ttr_p99_s']:.0f}s "
+              f"(x{res['ttr_p99_speedup_flat']:.1f}) origin_egress "
+              f"{o['origin_egress_bytes'] / 1e9:.1f} -> "
+              f"{s['origin_egress_bytes'] / 1e9:.1f}GB "
+              f"(/{res['egress_reduction_flat']:.1f})")
+        if include_islands:
+            o, s = res["islands"]["origin"], res["islands"]["swarm"]
+            print(f"[scenarioXI] {n_islands} islands: ttr_p99 "
+                  f"{o['ttr_p99_s']:.0f} -> {s['ttr_p99_s']:.0f}s "
+                  f"(x{res['ttr_p99_speedup_islands']:.1f}) origin_egress "
+                  f"{o['origin_egress_bytes'] / 1e9:.1f} -> "
+                  f"{s['origin_egress_bytes'] / 1e9:.1f}GB "
+                  f"(/{res['egress_reduction_islands']:.1f})")
+        if include_chaos:
+            c = res["chaos"]
+            print(f"[scenarioXI] chaos: origin died at "
+                  f"{c['origin_died_at_s']:.0f}s, "
+                  f"{c['replicas_ready']}/{n_replicas} replicas ready "
+                  f"(all_ready={c['ready']}) ttr_p99={c['ttr_p99_s']:.0f}s")
+    return res
+
+
+ALL_TABLES = {"table1": table1, "table2": table2, "table3": table3,
+              "table4": table4, "scenario_v": scenario_v,
+              "scenario_vi": scenario_vi, "scenario_vii": scenario_vii,
+              "scenario_viii": scenario_viii, "scenario_ix": scenario_ix,
+              "scenario_x": scenario_x, "scenario_xi": scenario_xi}
+
+
+def main(argv=None) -> None:
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.scenarios",
+        description="Run the paper's tables and the swarm scenarios and "
+                    "print their lines.")
+    ap.add_argument("names", nargs="*", metavar="name",
+                    help=f"of {', '.join(ALL_TABLES)} (default: all, in "
+                         f"that order)")
+    ap.add_argument("--device", default="cuda",
+                    help="device of the batched hub (scenarios VII-X)")
+    args = ap.parse_args(argv)
+    unknown = [n for n in args.names if n not in ALL_TABLES]
+    if unknown:
+        ap.error(f"unknown names {unknown}")
+    for name in args.names or ALL_TABLES:
+        fn = ALL_TABLES[name]
+        if name in SCALAR:
+            fn()
+        else:
+            fn(device=args.device)
+
+
+if __name__ == "__main__":
+    main()

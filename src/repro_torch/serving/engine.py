@@ -76,7 +76,7 @@ class ServingEngine:
     @classmethod
     def from_swarm(cls, cfg: ModelConfig, template, sc: ServeConfig, *,
                    agent, app_id: str, workdir=None, mesh=None,
-                   device="cuda") -> "ServingEngine":
+                   pod_axis: str = "pod", device="cuda") -> "ServingEngine":
         """Cold-start a replica from the distribution swarm.
 
         The replica's `agent` leeched the checkpoint Application like any
@@ -85,16 +85,31 @@ class ServingEngine:
         re-hashes its content against the manifest and restores the
         params into `template`'s structure (tensors or `ParamSpec`s) on
         ``device``.  Raises if the piece set is still incomplete (the
-        ready gate), and for a mesh: the reference's intra-pod fan-out
-        comes with the meshes slice."""
-        from repro_torch.checkpoint.store import MESH_RESTORE
+        ready gate).
+
+        With a `DeviceMesh` that has ``pod_axis``, every rank of that axis
+        calls this: rank 0 (the seeder) holds the agent and restores from
+        it, the other ranks pass ``agent=None`` and receive the params
+        (and the checkpoint's ``extra``) over the `weight_torrent` ring,
+        so only one host per pod pulls from the swarm.  Each rank then
+        builds its engine on ``device``.  A mesh whose other axes have
+        more than one rank would shard the engine, which the port does
+        not do yet, and raises."""
+        from repro_torch.checkpoint.store import pod_restore
         from repro_torch.checkpoint.swarm_restore import restore_from_agent
-        if mesh is not None:
-            raise NotImplementedError(MESH_RESTORE)
+        sharded = [name for name, size in
+                   zip(getattr(mesh, "mesh_dim_names", None) or (),
+                       getattr(mesh, "shape", ()))
+                   if name != pod_axis and size > 1]
+        if sharded:
+            raise NotImplementedError(f"{MESH_SHARDING} (mesh axes "
+                                      f"{sharded})")
         dev = resolve_device(device)
         template = _on_device(template, dev)
-        params, extra = restore_from_agent(agent, app_id, template,
-                                           workdir=workdir, device=dev)
+        params, extra = pod_restore(
+            lambda: restore_from_agent(agent, app_id, template,
+                                       workdir=workdir, device=dev),
+            template, mesh, pod_axis, dev)
         eng = cls(cfg, params, sc, device=dev)
         eng.restore_extra = extra
         return eng
@@ -221,6 +236,12 @@ class ServingEngine:
         return {b: {"d": self.metrics["d"][b], "p": self.metrics["p"][b],
                     "w": self.metrics["w"][b]}
                 for b in self.metrics["p"]}
+
+
+MESH_SHARDING = ("serving over a mesh's non-pod axes (the sharding rules "
+                 "and the sharded layers) comes with the meshes slice "
+                 "(ROADMAP queue 1, item 5); give from_swarm a mesh whose "
+                 "other axes have one rank")
 
 
 def _on_device(template, dev: torch.device):

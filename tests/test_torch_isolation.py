@@ -208,6 +208,36 @@ def test_training_entry_points_default_to_cuda(tmp_path):
     assert Trainer(cfg, AdamWConfig(), tc, device="cpu").device.type == "cpu"
 
 
+def test_mesh_and_table_entry_points_default_to_cuda(tmp_path):
+    """The torrent restore and the pod fan-out of `from_swarm` run on the
+    card unless asked for the CPU; the paper's tables and the ring's cost
+    models take no device."""
+    from types import SimpleNamespace
+    from repro_torch import scenarios
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.parallel import weight_torrent as wt
+    from repro_torch.parallel.sharding import ParamSpec
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    specs = {"w": ParamSpec((2, 3), (None, None))}
+    store = CheckpointStore(str(tmp_path / "ck"))
+    store.save(0, {"w": torch.ones(2, 3)})
+    got, _ = store.restore_distributed(specs, None, device="cpu")
+    assert got["w"].device.type == "cpu"
+    assert wt.axis_group(None, "pod") is None
+    assert wt.axis_group(SimpleNamespace(mesh_dim_names=("data",)),
+                         "pod") is None
+    assert "device" not in scenarios.table1.__code__.co_varnames
+    assert wt.broadcast_cost_model(1e9, 4)["speedup"] > 1
+    if torch.cuda.is_available():
+        return
+    pod = SimpleNamespace(mesh_dim_names=("pod",), shape=(4,))
+    with pytest.raises(RuntimeError, match="cuda"):
+        store.restore_distributed(specs, None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine.from_swarm(None, specs, ServeConfig(), agent=None,
+                                 app_id="a", mesh=pod)
+
+
 def test_build_without_nvcc_raises(tmp_path):
     """A CUDA-path request with no way to build the library raises: there
     is no fallback to the plain versions."""

@@ -59,6 +59,18 @@ RUNS = {
         "n_volunteers": 24, "image_mb": 8.0, "n_pieces": 80,
         "chaos_volunteers": 12, "chaos_pieces": 16,
         "chaos_image_mb": 1.0}),
+    # the scalar runs: the paper's tables and Scenarios V, VI and XI at
+    # their defaults (chip_smoke.py's paper_tables_phase), and XI cut to
+    # R=8 / 256 MB for the CPU tests
+    "table1": ("table1", {}),
+    "table2": ("table2", {}),
+    "table3": ("table3", {}),
+    "table4": ("table4", {}),
+    "scenario_v": ("scenario_v", {}),
+    "scenario_vi": ("scenario_vi", {}),
+    "xi_r50": ("scenario_xi", {}),
+    "xi_r8_256mb": ("scenario_xi", {"n_replicas": 8, "ckpt_mb": 256.0,
+                                    "n_pieces": 32, "n_islands": 4}),
 }
 SMALL = ("vii_n64", "ix_n64_i4", "viii_n24_batched", "x_n24_p80")
 
@@ -76,10 +88,47 @@ def _reference_chaos_batched():
         rc.ChaosScenario = cls
 
 
+@contextlib.contextmanager
+def _recorded(module, name):
+    """Wrap `module.name`, a function, so that every result it returns is
+    appended to the list this yields."""
+    fn = getattr(module, name)
+    seen = []
+
+    def recording(*a, **kw):
+        seen.append(fn(*a, **kw))
+        return seen[-1]
+
+    setattr(module, name, recording)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def run_scalar(package, scenario, params):
+    """One of the paper's tables or Scenarios V, VI, XI in either package
+    (no device is involved).  A reference table's result gains its run's
+    `ScenarioOut` under "scenario_out", as the port's tables carry it."""
+    from repro_torch import scenarios as port
+    if package == "port":
+        return getattr(port, scenario)(verbose=False, **params)
+    from benchmarks import paper_tables as ref
+    if scenario not in port.TABLES:
+        return getattr(ref, scenario)(verbose=False, **params)
+    with _recorded(ref, "run_scenario") as outs:
+        res = getattr(ref, scenario)(verbose=False, **params)
+    (out,) = outs
+    return dict(res, scenario_out=port.scenario_out_fields(out))
+
+
 def run_scenario(package, scenario, params):
     """Run one scenario in the reference (numpy backend) or the port
     (device="cpu"); returns its full result ("chaos": the report of a
     run whose invariants were checked)."""
+    from repro_torch.scenarios import SCALAR
+    if scenario in SCALAR:
+        return run_scalar(package, scenario, params)
     params = dict(params)
     if scenario == "chaos":
         if package == "reference":
