@@ -102,9 +102,23 @@
    shapes on the card; prints the ring's seconds, each rank's bytes
    sent and the seeder's upload as a multiple of the image.  With two
    cards or more the ring also runs on NCCL;
-7. prints the per-kernel JSON line (each row with its launches on the
-   serve, MoE, enc-dec and train paths), the card's name and power limit,
-   and as the last line `{"ok": true, "device": {...}}`.
+7. the mesh slice (`mesh_serve_phase`): 4 spawned gloo ranks sharing
+   the card as a (data, model) mesh (the collectives cross the host, the
+   compute and the kernels stay on the card): `flash_fwd` and `ssd_scan`
+   at a rank's local-head shapes against their plain versions; zamba2-7b
+   at full width cut to 13 layers in bf16 (B=4 S=2048, 32 decode steps)
+   on (2, 2), each layer within 2e-2 of the single-device layer on the
+   same input; the 7-layer f32 zamba2 of `reference_serve.json` on (2, 2)
+   and (1, 4) and the sharded `ServingEngine` against the single-device
+   engine; qwen3-moe-30b-a3b at full width cut to 4 layers in bf16 (a2a
+   prefill, replicated decode); the 2-layer f32 qwen3-moe against
+   `src/repro_torch/reference_serve_mesh.json` (tokens, logits, every
+   shard's expert counts and drops).  With two cards or more the f32
+   zamba2 also runs on a (1, 2) NCCL mesh.  `python3 chip_smoke.py
+   --mesh-serve` builds the kernels and runs this phase alone;
+8. prints the per-kernel JSON line (each row with its launches on the
+   serve, MoE, enc-dec, train and mesh paths), the card's name and power
+   limit, and as the last line `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero without the last line.  The protocol iterates
 sets of node names, so the script re-executes itself under
@@ -173,8 +187,16 @@ SSD_CASES = [
 ]
 
 
+# where `main` keeps every line `log` prints (build/chip_smoke.log: a
+# reader of the output may get only its tail)
+LOG_FILE = None
+
+
 def log(msg):
     print(msg, flush=True)
+    if LOG_FILE is not None:
+        with open(LOG_FILE, "a") as f:
+            print(msg, file=f)
 
 
 def fail(msg):
@@ -863,6 +885,26 @@ def model_kernel_phase(torch):
               library=lambda: F.scaled_dot_product_attention(
                   qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv))
         del q, k, v, qt, kt, vt, out, lse, want, wlse
+    # the mesh slice's local heads, one rank of a (2, 2) mesh at B=4:
+    # zamba2's shared attention (32 heads over model = 2, D=112) and
+    # qwen3-moe's (32:4 heads: 16 query heads read 2 kv heads)
+    for Hq, Hkv, D, what in ((16, 16, 112, "zamba2, a mesh rank"),
+                             (16, 2, 128, "qwen3-moe, a mesh rank")):
+        q = up((2, S, Hq, D), torch.bfloat16)
+        k, v = (up((2, S, Hkv, D), torch.bfloat16) for _ in range(2))
+        out, lse = fk.flash_fwd(q, k, v, causal=True)
+        want, _ = fk.flash_fwd_plain(q, k, v, causal=True)
+        case = f"B=2 S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16 ({what})"
+        check("flash_fwd", case, out, want, 2e-2, "out")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        timed("flash_fwd",
+              lambda: fk.flash_fwd(q, k, v, causal=True), None,
+              lambda: fk.flash_fwd_plain(q, k, v, causal=True),
+              nbytes(q, k, v, out) + lse.numel() * 4,
+              4 * 2 * Hq * D * live_pairs(S, S, True, 0), BF16_OPS_PER_S,
+              library=lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv))
+        del q, k, v, qt, kt, vt, out, lse, want
 
     # ---- ssd_scan -------------------------------------------------------- #
     def ssd_inputs(B, S, H, P, G, N, dtype):
@@ -919,6 +961,20 @@ def model_kernel_phase(torch):
     case = f"B=2 S={S} H={H} P={P} G={G} N={N} chunk={chunk} bf16 (train)"
     check("ssd_scan", case, y, wy, 1e-2, "y", relative=True)
     check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
+    # a rank of the (2, 2) mesh: B=4 over data, 112 SSM heads over model
+    args = ssd_inputs(2, S, H // 2, P, G, N, torch.bfloat16)
+    y, fin = ssk.ssd_scan(*args, chunk=chunk)
+    wy, wfin = ssk.ssd_scan_plain(*args, chunk=chunk)
+    case = (f"B=2 S={S} H={H // 2} P={P} G={G} N={N} chunk={chunk} bf16 "
+            "(a mesh rank)")
+    check("ssd_scan", case, y, wy, 1e-2, "y", relative=True)
+    check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
+    timed("ssd_scan",
+          lambda: ssk.ssd_scan(*args, chunk=chunk),
+          lambda: ssk.ssd_scan_v1(*args, chunk=chunk),
+          lambda: ssk.ssd_scan_plain(*args, chunk=chunk),
+          sum(t.numel() * t.element_size() for t in (*args, y, fin)),
+          ssd_ops(2, S, H // 2, P, N, chunk), BF16_OPS_PER_S)
     return records
 
 
@@ -2812,7 +2868,577 @@ def moe_encdec_phases(torch, device="cuda"):
 
 
 
+# ============= the mesh slice: serving over a (data, model) mesh ========= #
+MESH_FILE = SRC / "repro_torch" / "reference_serve_mesh.json"
+
+
+def mesh_rank(rank, world, init_file, backend, device, job, results):
+    """One rank of `mesh_serve_phase` (a spawned process): see there.
+    Reports a dict of its readings, or its traceback, on ``results``."""
+    import traceback
+    try:
+        results.put((rank, "ok", _mesh_rank(rank, world, init_file, backend,
+                                            device, job)))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def _mesh_serve(torch, cfg, params, mesh, prompts, n_decode, device,
+                what):
+    """Prefill ``prompts`` (B, S) and greedy-decode ``n_decode`` steps
+    through the mesh serve steps: (tokens (n+1, B), logits (n+1, B, V)
+    f32, prefill s, decode ms/step, the kernels' launches)."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import infer_rules
+    from repro_torch.training.train_state import (make_decode_step,
+                                                  make_prefill_step)
+    rules = infer_rules(cfg)
+    B, S = prompts.shape
+    pre = make_prefill_step(cfg, mesh, rules, return_logits=True)
+    dec = make_decode_step(cfg, mesh, rules, return_logits=True)
+    caches = M.init_caches(cfg, B, S + n_decode, mesh=mesh, rules=rules,
+                           device=device)
+    C.reset_stats()
+    reset_model_launches()
+    sync(torch, device)
+    t0 = time.perf_counter()
+    tok, caches, lg = pre(params, {"tokens": prompts}, caches)
+    sync(torch, device)
+    prefill_s = time.perf_counter() - t0
+    toks, logits = [tok], [lg.float()]
+    t0 = time.perf_counter()
+    for _ in range(n_decode):
+        tok, caches, lg = dec(params, {"tokens": tok[:, None]}, caches)
+        toks.append(tok)
+        logits.append(lg.float())
+    sync(torch, device)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(n_decode, 1)
+    return {"what": what, "tokens": torch.stack(toks),
+            "logits": torch.stack(logits), "prefill_s": prefill_s,
+            "decode_ms": decode_ms, "launches": model_launches(),
+            "wire": dict(C.STATS)}
+
+
+def _single_logits(torch, cfg, params, prompts, toks, device):
+    """The single-device port's logits (n+1, B, V) f32 of a prefill and
+    decode steps teacher-forced with ``toks`` (n+1, B)."""
+    from repro_torch.models import model as M
+    B, S = prompts.shape
+    n = toks.shape[0] - 1
+    caches = M.init_caches(cfg, B, S + n, device=device)
+    out = []
+    with torch.no_grad():
+        lg, caches = M.prefill(cfg, params, {"tokens": prompts}, caches)
+        out.append(lg.float())
+        for i in range(n):
+            lg, caches = M.decode_step(cfg, params,
+                                       {"tokens": toks[i][:, None]}, caches)
+            out.append(lg.float())
+    return torch.stack(out)
+
+
+def _mesh_layerwise(torch, cfg, full, local, mesh, prompts):
+    """Each layer of a prefill on the same input (the single-device run's
+    input to that layer) through the single-device layer (``full``) and
+    through its mesh blocks (``local``, this rank's rows): the worst max
+    |mesh - single| over max |single| of each layer's output."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as shlib
+    from repro_torch.parallel.collectives import all_gather, local_chunk
+    rules = shlib.infer_rules(cfg)
+    B, S = prompts.shape
+    axes = shlib.entry_axes(shlib.logical_to_mesh_axes(mesh, (B,),
+                                                       ("batch",), rules)[0])
+    pos = torch.broadcast_to(torch.arange(S, device=prompts.device), (B, S))
+    aux = torch.zeros((), device=prompts.device)
+    out = []
+    with torch.no_grad():
+        x = L.embed_tokens(full["embed"], prompts, cfg)
+        for gi, g in enumerate(cfg.groups):
+            for r in range(g.repeat):
+                pf = M._index_tree(full["decoder"][f"g{gi}"], r)
+                pl = M._index_tree(local["decoder"][f"g{gi}"], r)
+                for i, ls in enumerate(g.layers):
+                    y1, _, _ = M.apply_layer(
+                        cfg, ls, pf[f"L{i}"], x, aux, mode="prefill",
+                        shared_params=full.get("shared_attn"),
+                        positions=pos)
+                    with shlib.sharding_ctx(mesh, rules, batch=B,
+                                            cache_len=S):
+                        y2, _, _ = M.apply_layer(
+                            cfg, ls, pl[f"L{i}"],
+                            local_chunk(x, axes, mesh, 0), aux,
+                            mode="prefill",
+                            shared_params=local.get("shared_attn"),
+                            positions=local_chunk(pos, axes, mesh, 0))
+                        y2 = all_gather(y2, axes, mesh)
+                    out.append(float((y2.float() - y1.float()).abs().max()
+                                     / y1.float().abs().max()))
+                    x = y1
+    return out
+
+
+def _mesh_kernels(torch, device):
+    """`flash_fwd` and `ssd_scan` at a (2, 2) rank's local-head shapes on
+    this rank, against their plain versions: (name, case, max abs err)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as ssk
+    g = torch.Generator(device=device).manual_seed(7)
+
+    def up(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=device) * scale).to(
+            torch.bfloat16)
+    out = []
+    for Hq, Hkv, D in ((16, 16, 112), (16, 2, 128)):
+        q, k, v = up(2, 2048, Hq, D), up(2, 2048, Hkv, D), up(2, 2048, Hkv, D)
+        got, _ = fk.flash_fwd(q, k, v, causal=True)
+        want, _ = fk.flash_fwd_plain(q, k, v, causal=True)
+        out.append(("flash_fwd", f"B=2 Hq={Hq} Hkv={Hkv} D={D}",
+                    float((got.float() - want.float()).abs().max()), 2e-2))
+    x = up(2, 2048, 56, 64)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (2, 2048, 56), generator=g, device=device))
+    A = -torch.exp(torch.randn((56,), generator=g, device=device) * 0.3)
+    Bm, Cm = up(2, 2048, 1, 64, scale=0.5), up(2, 2048, 1, 64, scale=0.5)
+    y, _ = ssk.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    wy, _ = ssk.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=256)
+    err = float((y.float() - wy.float()).abs().max())
+    out.append(("ssd_scan", "B=2 H=56 P=64 N=64 chunk=256", err,
+                1e-2 * float(wy.float().abs().max())))
+    return out
+
+
+def _file_check(torch, ref, got, what):
+    """A mesh run's tokens and logits against a reference file's steps:
+    tokens equal, logits at the file's indices within its tolerance of
+    max|logit|.  Returns the worst error."""
+    import numpy as np
+    idx = torch.tensor(ref["logit_index"], device=got["logits"].device)
+    worst = 0.0
+    for i, step in enumerate(ref["steps"]):
+        want_t = step["tokens"] if "tokens" in step else [step["token"]]
+        lg = got["logits"][i]
+        if got["tokens"][i].tolist() != want_t:
+            raise AssertionError(f"{what} step {i}: tokens "
+                                 f"{got['tokens'][i].tolist()}, the file's "
+                                 f"{want_t}")
+        values = np.asarray(step["values"]).reshape(len(want_t), -1)
+        max_abs = np.asarray(step["max_abs"]).reshape(-1)
+        err = np.abs(lg[:, idx].cpu().numpy() - values).max(axis=1)
+        rel = float((np.maximum(err, np.abs(lg.abs().amax(-1).cpu().numpy()
+                                            - max_abs)) / max_abs).max())
+        worst = max(worst, rel)
+        if rel > ref["tolerance"]:
+            raise AssertionError(f"{what} step {i}: logits off by {rel:.3e} "
+                                 f"of max|logit|")
+    return worst
+
+
+def _mesh_rank(rank, world, init_file, backend, device, job):
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.convert import shard_params
+    from repro_torch.parallel.sharding import (infer_rules, init_params,
+                                               init_params_numpy)
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=900))
+    out = {"rank": rank, "runs": {}}
+    try:
+        if on_card and job.get("kernels"):
+            out["kernels"] = _mesh_kernels(torch, device)
+        meshes = {shape: make_host_mesh(*shape) for shape in job["meshes"]}
+
+        def keep(got):
+            got = dict(got)
+            if on_card:
+                got["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            out["runs"][got["what"]] = got
+            return got
+
+        # ---- zamba2 at full width, 13 layers, bf16, on (2, 2) ----------- #
+        z = job.get("zamba2")
+        if z:
+            cfg = z["cfg"]
+            full = condition_attention(init_params(
+                z["seed"], M.model_param_specs(cfg), dtype=torch.bfloat16,
+                device=device))
+            params = shard_params(full, M.model_param_specs(cfg),
+                                  meshes[z["mesh"]], infer_rules(cfg),
+                                  device=device)
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            g = torch.Generator().manual_seed(z["seed"])
+            prompts = torch.randint(0, cfg.vocab_size, (z["B"], z["S"]),
+                                    generator=g, dtype=torch.int32).to(device)
+            got = keep(_mesh_serve(torch, cfg, params, meshes[z["mesh"]],
+                                   prompts, z["n_decode"], device,
+                                   "zamba2_bf16"))
+            got["layers"] = _mesh_layerwise(torch, cfg, full, params,
+                                            meshes[z["mesh"]], prompts)
+            del params
+            dist.barrier()
+            if rank == 0:
+                single = _single_logits(torch, cfg, full, prompts,
+                                        got["tokens"], device)
+                diff = (got["logits"] - single).abs().amax(dim=(1, 2))
+                scale = single.abs().amax(dim=(1, 2))
+                got["vs_single"] = float((diff / scale).max())
+                got["tokens_agree"] = float(
+                    (single.argmax(-1) == got["tokens"]).float().mean())
+                del full, single
+            dist.barrier()
+            if on_card:
+                torch.cuda.empty_cache()
+
+        # ---- the 7-layer f32 zamba2 of reference_serve.json ------------- #
+        r = job.get("serve_ref")
+        if r:
+            ref, cfg = r["ref"], r["cfg"]
+            tree = init_params_numpy(ref["seed"], M.model_param_specs(cfg))
+            prompt = torch.tensor([ref["prompt"]], dtype=torch.int32,
+                                  device=device)
+            for shape in r["meshes"]:
+                params = shard_params(tree, M.model_param_specs(cfg),
+                                      meshes[shape], infer_rules(cfg),
+                                      device=device)
+                got = keep(_mesh_serve(torch, cfg, params, meshes[shape],
+                                       prompt, ref["decode_steps"], device,
+                                       f"serve_ref_{shape[0]}x{shape[1]}"))
+                got["worst"] = _file_check(torch, ref, got, got["what"])
+                del params
+            # the sharded engine against the single-device engine
+            e = r.get("engine")
+            if e:
+                from repro_torch.serving.engine import (ServeConfig,
+                                                        ServingEngine)
+                mesh = meshes[e["mesh"]]
+                prompts = [np.asarray(p, np.int32) for p in e["prompts"]]
+                sc = ServeConfig(slots=e["slots"], max_len=e["max_len"])
+
+                def drain(eng):
+                    for p in prompts:
+                        eng.submit(p, max_new=e["max_new"])
+                    reqs = list(eng.queue)
+                    t0 = time.perf_counter()
+                    while eng.queue or eng.active:
+                        eng.step()
+                    sync(torch, device)
+                    return ([q.out_tokens for q in reqs],
+                            time.perf_counter() - t0)
+                reset_model_launches()
+                tokens, secs = drain(ServingEngine(cfg, tree, sc, mesh=mesh,
+                                                   device=device))
+                out["engine"] = {"tokens": tokens, "s": secs,
+                                 "launches": model_launches()}
+                if rank == 0:
+                    from repro_torch.models.convert import \
+                        params_from_reference
+                    single, s1 = drain(ServingEngine(
+                        cfg, params_from_reference(tree, device=device), sc,
+                        device=device))
+                    out["engine"].update(single=single, single_s=s1)
+                dist.barrier()
+            del tree
+
+        # ---- qwen3-moe at full width, 4 layers, bf16, on (2, 2) --------- #
+        q = job.get("moe")
+        if q:
+            cfg = q["cfg"]
+            full = condition_attention(init_params(
+                q["seed"], M.model_param_specs(cfg), dtype=torch.bfloat16,
+                device=device))
+            params = shard_params(full, M.model_param_specs(cfg),
+                                  meshes[q["mesh"]], infer_rules(cfg),
+                                  device=device)
+            del full
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            g = torch.Generator().manual_seed(q["seed"])
+            prompts = torch.randint(0, cfg.vocab_size, (q["B"], q["S"]),
+                                    generator=g, dtype=torch.int32).to(device)
+            moe_lib.DISPATCH.clear()
+            got = keep(_mesh_serve(torch, cfg, params, meshes[q["mesh"]],
+                                   prompts, q["n_decode"], device,
+                                   "moe_bf16"))
+            got["dispatch"] = dict(moe_lib.DISPATCH)
+            got["finite"] = bool(torch.isfinite(got["logits"]).all())
+            del params
+            if on_card:
+                torch.cuda.empty_cache()
+
+        # ---- the 2-layer f32 qwen3-moe of reference_serve_mesh.json ----- #
+        m = job.get("moe_ref")
+        if m:
+            ref, cfg = m["ref"], m["cfg"]
+            mesh = meshes[tuple(ref["mesh"])]
+            tree = init_params_numpy(ref["seed"], M.model_param_specs(cfg))
+            params = shard_params(tree, M.model_param_specs(cfg), mesh,
+                                  infer_rules(cfg), device=device)
+            del tree
+            calls, caps = [], []
+            inner, inner_cap = moe_lib._route, moe_lib.local_capacity
+
+            def route(xf, w, k):
+                res = inner(xf, w, k)
+                calls.append(res[1].cpu().numpy())
+                return res
+
+            def capacity(c, n):
+                caps.append(inner_cap(c, n))
+                return caps[-1]
+            moe_lib._route, moe_lib.local_capacity = route, capacity
+            try:
+                got = keep(_mesh_serve(
+                    torch, cfg, params, mesh,
+                    torch.tensor(ref["prompts"], dtype=torch.int32,
+                                 device=device), ref["decode_steps"], device,
+                    "moe_ref"))
+            finally:
+                moe_lib._route, moe_lib.local_capacity = inner, inner_cap
+            got["worst"] = _file_check(torch, ref, got, "moe_ref")
+            routing = []
+            for e_, cap in zip(calls, caps):
+                counts = np.bincount(e_.reshape(-1),
+                                     minlength=cfg.num_experts)
+                routing.append([int(e_.shape[0]), int(cap), counts.tolist(),
+                                int(np.maximum(counts - cap, 0).sum())])
+            d, mm = mesh.get_coordinate()
+            if routing != ref["routing"][f"{d},{mm}"]:
+                raise AssertionError(f"moe_ref: shard ({d}, {mm}) routing "
+                                     "differs from the file's")
+            got["drops"] = [c[3] for c in routing]
+            del params
+        for got in out["runs"].values():
+            got["tokens"] = got["tokens"].tolist()
+            got.pop("logits")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_mesh_ranks(world, root, backend, device, job, limit):
+    """``world`` spawned `mesh_rank` processes on one process group;
+    their readings in rank order.  Fails, after killing every rank, when
+    a rank raises, dies or they outlast ``limit`` seconds."""
+    import multiprocessing
+    import queue
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    init_file = Path(root) / f"pg_mesh_{backend}"
+    Path(root).mkdir(parents=True, exist_ok=True)
+    init_file.unlink(missing_ok=True)
+    procs = [ctx.Process(target=mesh_rank, daemon=True,
+                         args=(r, world, str(init_file), backend, device,
+                               job, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + limit
+    got, errors = {}, []
+    try:
+        while len(got) < world and not errors:
+            try:
+                rank, status, out = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
+                if dead:
+                    errors.append(f"ranks {dead} exited without a result")
+                elif time.monotonic() > deadline:
+                    errors.append(f"the ranks outlasted {limit} s")
+                continue
+            if status == "error":
+                errors.append(f"rank {rank}:\n{out}")
+            got[rank] = out
+        for p in procs if not errors else ():
+            p.join(timeout=max(0.0, deadline - time.monotonic()) + 10.0)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    if errors:
+        fail(f"mesh ranks ({backend}): " + "\n".join(errors))
+    return [got[r] for r in range(world)]
+
+
+def mesh_jobs(zamba2=None, moe=None, serve_ref=True, moe_ref=True):
+    """The mesh phase's job for 4 ranks sharing one card: the configs of
+    each run (``zamba2`` / ``moe`` replace the full-width ones, for a
+    rehearsal on the CPU; ``serve_ref`` / ``moe_ref`` take the reference
+    files' full-width f32 models)."""
+    from repro_torch.configs.base import GroupSpec, LayerSpec, get_config
+    job = {"meshes": [(2, 2), (1, 4)], "kernels": True}
+    job["zamba2"] = {"cfg": zamba2 or get_config("zamba2-7b").replace(
+        dtype="bfloat16", use_pallas=True, groups=train_groups()),
+        "seed": 20, "mesh": (2, 2), "B": 4, "S": 2048, "n_decode": 32}
+    moe_groups = (GroupSpec((LayerSpec("attn", "moe"),), 4),)
+    job["moe"] = {"cfg": moe or get_config("qwen3-moe-30b-a3b").replace(
+        dtype="bfloat16", use_pallas=True, groups=moe_groups),
+        "seed": 20, "mesh": (2, 2), "B": 4, "S": 2048, "n_decode": 4}
+    if serve_ref:
+        ref = json.loads(SERVE_FILE.read_text())
+        job["serve_ref"] = {
+            "ref": ref, "cfg": serve_reference_config(ref),
+            "meshes": [(2, 2), (1, 4)],
+            "engine": {"mesh": (2, 2), "slots": 2, "max_len": 64,
+                       "max_new": 8, "prompts": [
+                           ref["prompt"][i:i + n] for i, n in
+                           ((0, 12), (100, 5), (300, 20), (700, 9))]}}
+    if moe_ref:
+        ref = json.loads(MESH_FILE.read_text())
+        job["moe_ref"] = {"ref": ref, "cfg": serve_reference_config(ref)}
+    return job
+
+
+def mesh_serve_phase(torch, job=None, device="cuda", limit=600.0):
+    """Serving over a (data, model) mesh: 4 spawned gloo ranks share the
+    card (NCCL refuses two ranks on one card): the compute and the
+    kernels stay on the card, the collectives cross the host
+    (`parallel.collectives`, a counted hop).  Every rank holds
+    `flash_fwd` and `ssd_scan` against their plain versions at its
+    local-head shapes, then (`mesh_jobs`):
+    - zamba2-7b at full width cut to 13 layers (the train cut: 2
+      shared-attention hits), bf16, B=4 S=2048 prefill + 32 decode steps
+      on a (2, 2) mesh; each layer on the same input within 2e-2 of its
+      max of the port's single-device layer on the same weights (the
+      serve slice's bf16 layer bound), and the whole model's logits
+      (teacher-forced) and greedy tokens against the single-device run
+      reported;
+    - the 7-layer f32 zamba2 of `reference_serve.json` on the (2, 2) mesh
+      (B=1: the caches' sequence over both axes) and a (1, 4) mesh, its
+      tokens the file's and its logits within the file's tolerance; the
+      sharded `ServingEngine` on 4 requests equal to the single-device
+      engine;
+    - qwen3-moe-30b-a3b at full width cut to 4 layers, bf16, B=4 S=2048
+      + 4 decode steps on (2, 2): a2a dispatch in prefill, replicated in
+      decode (experts FSDP over data, gathered a layer at a time);
+    - the 2-layer f32 qwen3-moe of `reference_serve_mesh.json`: tokens,
+      logits, and every shard's expert counts and drops the file's.
+    Prints each rank's prefill s, decode ms/step, wire bytes and calls,
+    peak memory and launches.  With two cards or more, the f32 zamba2
+    also runs on a (1, 2) NCCL mesh, one card a rank.  Returns rank 0's
+    launches over its bf16 runs."""
+    root = ROOT / "build" / "chip_mesh"
+    job = job or mesh_jobs()
+    t0 = time.perf_counter()
+    outs = spawn_mesh_ranks(4, root, "gloo", device, job, limit)
+    wall = time.perf_counter() - t0
+    for o in outs:
+        r = o["rank"]
+        for name, case, err, tol in o.get("kernels", []):
+            log(f"[mesh] rank {r} {name} {case} bf16 against its plain "
+                f"version: max abs err {err:.3e} (tolerance {tol:.3g})")
+            if not err <= tol:
+                fail(f"mesh rank {r}: {name} {case} off by {err:.3e}")
+        for name, got in o["runs"].items():
+            w = got["wire"]
+            log(f"[mesh] rank {r} {name}: prefill {got['prefill_s']:.3f}s, "
+                f"decode {got['decode_ms']:.2f} ms/step; wire "
+                f"{w.get('wire_bytes', 0)} bytes in "
+                f"{sum(v for k, v in w.items() if k in COLLECTIVES)} calls "
+                f"({json.dumps({k: v for k, v in w.items() if k in COLLECTIVES})}"
+                f"), host hop {w.get('hop_bytes', 0)} bytes, "
+                f"{w.get('seconds', 0):.3f}s in collectives; peak "
+                f"{got.get('peak_gib', 0):.2f} GiB; launches "
+                f"{json.dumps(got['launches'])} ({card_or_cpu(device)})")
+    o0 = outs[0]
+    runs = o0["runs"]
+    for name in runs:
+        if any(o["runs"][name]["tokens"] != runs[name]["tokens"]
+               for o in outs):
+            fail(f"mesh {name}: the ranks returned different tokens")
+    z = runs.get("zamba2_bf16")
+    if z:
+        n_ssd, n_attn = layer_counts(job["zamba2"]["cfg"])
+        n_dec = job["zamba2"]["n_decode"]
+        want = (route_counts(n_attn, n_ssd, n_attn, n_ssd)
+                if device == "cuda" else route_counts(0, 0, 0, 0))
+        if z["launches"] != want:
+            fail(f"mesh zamba2 launched {z['launches']}, expected {want}")
+        worst = max(max(o["runs"]["zamba2_bf16"]["layers"]) for o in outs)
+        log(f"[mesh] zamba2 bf16 (2, 2) against the single-device run on "
+            f"the same weights: each layer on the same input within "
+            f"{worst:.3e} of its max (layers "
+            f"{[round(v, 5) for v in z['layers']]}); the whole model's "
+            f"logits within {z['vs_single']:.3e} of max|logit| (prefill + "
+            f"{n_dec} teacher-forced steps), greedy tokens agree "
+            f"{z['tokens_agree']:.3f}")
+        if not worst <= 2e-2:
+            fail(f"a mesh zamba2 bf16 layer differs from one device by "
+                 f"{worst:.3e} of its max")
+        # the whole model is held in f32 (the reference_serve.json runs
+        # below); in bf16 a random stack amplifies one rounding
+        # difference layer by layer, so its end to end is a reading
+    for name in ("serve_ref_2x2", "serve_ref_1x4", "moe_ref"):
+        if name in runs:
+            log(f"[mesh] {name} equals its reference file on every rank "
+                f"(worst {max(o['runs'][name]['worst'] for o in outs):.3e} "
+                f"of max|logit|)"
+                + (f"; drops per MoE call {[o['runs'][name]['drops'] for o in outs]}"
+                   if name == "moe_ref" else ""))
+    if "engine" in o0:
+        e = o0["engine"]
+        if any(o["engine"]["tokens"] != e["single"] for o in outs):
+            fail(f"the sharded engine served {e['tokens']}, one device "
+                 f"{e['single']}")
+        log(f"[mesh] sharded engine (2, 2): {len(e['tokens'])} requests "
+            f"equal the single-device engine's in {e['s']:.2f}s (one "
+            f"device {e['single_s']:.2f}s); launches "
+            f"{json.dumps(e['launches'])}")
+    q = runs.get("moe_bf16")
+    if q:
+        n_layers = sum(g.repeat for g in job["moe"]["cfg"].groups)
+        n_dec = job["moe"]["n_decode"]
+        want = {"a2a": n_layers, "replicated": n_layers * n_dec}
+        if q["dispatch"] != want or not q["finite"]:
+            fail(f"mesh qwen3-moe dispatched {q['dispatch']} (expected "
+                 f"{want}), finite logits {q['finite']}")
+        if device == "cuda" and q["launches"]["flash_fwd.mma"] != n_layers:
+            fail(f"mesh qwen3-moe launched {q['launches']}")
+    log(f"[mesh] 4 gloo ranks on one card: wall {wall:.1f}s "
+        f"({card_or_cpu(device)})")
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    if n_cards >= 2 and "serve_ref" in job:
+        nccl_job = {"meshes": [(1, 2)], "serve_ref": dict(
+            job["serve_ref"], meshes=[(1, 2)], engine=None)}
+        nc = spawn_mesh_ranks(2, root, "nccl", device, nccl_job, limit)
+        got = nc[0]["runs"]["serve_ref_1x2"]
+        log(f"[mesh] NCCL (1, 2), one card a rank: reference_serve.json "
+            f"equal (worst {got['worst']:.3e}), prefill "
+            f"{got['prefill_s']:.3f}s, decode {got['decode_ms']:.2f} "
+            f"ms/step ({card()})")
+    else:
+        log(f"[mesh] the NCCL mesh did not run: {n_cards} card(s), and "
+            "NCCL refuses two ranks on one card")
+    return {"zamba2": (z or {}).get("launches", {}),
+            "moe": (q or {}).get("launches", {})}
+
+
+COLLECTIVES = ("psum", "pmax", "all_gather", "all_to_all")
+
+
+def card_or_cpu(device):
+    return card() if device == "cuda" else "cpu"
+
+
 def main():
+    global LOG_FILE
     if os.environ.get("PYTHONHASHSEED") != "0":
         env = dict(os.environ, PYTHONHASHSEED="0")
         os.execve(sys.executable,
@@ -2828,6 +3454,9 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch finds no CUDA device")
+    LOG_FILE = ROOT / "build" / "chip_smoke.log"
+    LOG_FILE.parent.mkdir(exist_ok=True)
+    LOG_FILE.write_text("")
     from repro_torch import kernels_build, scenarios
     from repro_torch.core import swarm_kernels as sk
     kind = torch.cuda.get_device_name(0)
@@ -2835,7 +3464,8 @@ def main():
         f"cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()}")
 
-    tables = start_paper_tables()
+    mesh_only = sys.argv[1:] == ["--mesh-serve"]
+    tables = None if mesh_only else start_paper_tables()
     t0 = time.perf_counter()
     kernels_build.load()
     info = kernels_build.BUILD_INFO
@@ -2845,6 +3475,11 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
 
+    if mesh_only:
+        t0 = time.perf_counter()
+        mesh_serve_phase(torch)
+        log(f"[time] mesh-serve phase {time.perf_counter() - t0:.1f}s")
+        return
     records = kernel_phase(torch, sk)
     finish_paper_tables(tables)
 
@@ -2907,6 +3542,17 @@ def main():
     torrent_restore_phase(torch)
     log(f"[time] torrent-restore phase {time.perf_counter() - t0:.1f}s")
 
+    # ---- serving over a (data, model) mesh -------------------------------- #
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_launches = mesh_serve_phase(torch)
+    log(f"[time] mesh-serve phase {time.perf_counter() - t0:.1f}s")
+    for name in ("zamba2", "moe"):
+        if mesh_launches[name]["flash_fwd.mma"] <= 0:
+            fail(f"flash_fwd never launched on the mesh's {name} path")
+    if mesh_launches["zamba2"]["ssd_scan.mma"] <= 0:
+        fail("ssd_scan never launched on the mesh's zamba2 path")
+
     kernels = []
     for name in ("rarest_keys", "island_has", "match_requests", "flash_fwd",
                  "ssd_scan"):
@@ -2928,7 +3574,17 @@ def main():
             "train_launches_per_step": train["per_step"].get(kernel, 0),
             # the bf16 prefill + decode of qwen3-moe and of seamless
             "moe_launches": slice_launches["moe"].get(kernel, 0),
-            "encdec_launches": slice_launches["encdec"].get(kernel, 0)})
+            "encdec_launches": slice_launches["encdec"].get(kernel, 0),
+            # rank 0 of the (2, 2) mesh: the bf16 zamba2 and qwen3-moe
+            # prefill + decode on its local heads
+            "mesh_launches": sum(mesh_launches[m].get(kernel, 0)
+                                 for m in ("zamba2", "moe")),
+            # the timed local-head shapes of a (2, 2) mesh rank
+            "mesh_shapes": [{k: r[k] for k in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "v1_ms", "max_abs_err")}
+                for r in records[name]
+                if "mesh rank" in r["case"] and "ms" in r]})
     print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@
 Counterpart of `repro.launch.train` on one device: ``--device cuda`` (the
 default) or ``cpu``.  ``--reduced`` shrinks the architecture to a
 CPU-runnable width (same code path as production).  There is no
-``--mesh``: meshes come with the meshes slice.
+``--mesh``: the sharded train step comes with the next mesh slice
+(serving over a mesh is `training.train_state.make_decode_step(cfg,
+mesh)` and `ServingEngine(..., mesh=)`).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Attention: GQA projections + three execution strategies, mesh-free.
+"""Attention: GQA projections + three execution strategies.
 
 Counterpart of `repro.models.attention`:
 
@@ -13,9 +13,18 @@ Counterpart of `repro.models.attention`:
 
 Cross attention (encoder-decoder) projects the encoder's output to k/v
 once (`encode_cross_kv`) and attends to it without a mask
-(`cross_attention_block`).  The shard_map paths of the reference
-(sequence-sharded flash-decode, column/row-parallel projections) come with
-the parallel slice.
+(`cross_attention_block`), on one device.
+
+Under a mesh (`parallel.sharding.sharding_ctx`) `attention_block` runs
+on this rank's heads: the projections on its column
+blocks, `flash_fwd` on its local heads in prefill (with the kv heads
+those heads read, where the kv heads replicate: 4 kv heads over an
+8-way ``model`` axis), the reference's ``pad_attn_heads`` and
+``_q_col_parallel``, a row-parallel ``wo`` summed over ``model``, and
+caches in the rules' layout: a prefill writes a sequence-sharded cache
+through an all-to-all from heads to sequence, and decode runs a local
+flash-decode on each sequence block, combined with pmax / psum
+(`decode_attention`).
 
 Caches are updated in place: the prefill and decode writes go into the
 cache tensors the caller passed (the reference returns new arrays), which
@@ -27,12 +36,14 @@ import math
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import brick_fwd
 from repro_torch.models.layers import (apply_mrope, apply_rope, norm_spec,
                                        rms_norm)
-from repro_torch.parallel.sharding import ParamSpec
+from repro_torch.parallel import sharding as shlib
+from repro_torch.parallel.sharding import ParamSpec, act_spec, entry_axes
 
 NEG_INF = -1e30
 
@@ -139,21 +150,38 @@ def per_seq(index, B: int, device) -> torch.Tensor:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, t, *, window: int = 0,
-                     ring: bool = False, softcap: float = 0.0
+                     ring: bool = False, softcap: float = 0.0,
+                     seq_axes=(), Sc: Optional[int] = None
                      ) -> torch.Tensor:
     """q: (B, 1, Hq, D); caches: (B, S_c, Hkv, D); t = per-seq positions.
 
     ``ring=True`` treats the cache as a ring buffer of size S_c (sliding
-    window): the position of slot s is t - ((t - s) mod S_c)."""
-    B, Sc = k_cache.shape[0], k_cache.shape[1]
+    window): the position of slot s is t - ((t - s) mod S_c).
+
+    Under a mesh whose ``seq_axes`` split the cache's sequence (global
+    length ``Sc``), the caches are this rank's sequence block: each block
+    computes partial (o, m, l) and the blocks combine with pmax / psum
+    over ``seq_axes`` (flattened in their order), no cache gather."""
+    B, Sc_loc = k_cache.shape[0], k_cache.shape[1]
+    Sc = Sc or Sc_loc
     t = per_seq(t, B, q.device)
-    slots = torch.arange(Sc, device=q.device)
+    base = 0
+    mesh = shlib.current_mesh()
+    if seq_axes:
+        from repro_torch.parallel import collectives as C
+        base = C.axis_index(seq_axes, mesh) * Sc_loc
+    slots = base + torch.arange(Sc_loc, device=q.device)
     if ring:
         kpos = t[:, None] - torch.remainder(t[:, None] - slots[None, :], Sc)
     else:
-        kpos = torch.broadcast_to(slots[None, :], (B, Sc))
+        kpos = torch.broadcast_to(slots[None, :], (B, Sc_loc))
     o, m, l = _decode_attn_local(q, k_cache, v_cache, kpos, t, window,
                                  softcap)
+    if seq_axes:
+        m_g = C.pmax(m, seq_axes, mesh)
+        corr = torch.exp(m - m_g)
+        l = C.psum(l * corr, seq_axes, mesh)
+        o = C.psum(o * corr[..., None], seq_axes, mesh)
     out = o / l[..., None].clamp_min(1e-37)
     return out.reshape(q.shape).to(q.dtype)
 
@@ -172,9 +200,15 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, tp_sp: bool = False):
+    """q, k, v (B, S, heads, D) on this rank's head blocks, normed and
+    rotated; under ``tp_sp`` the Q projection gathers the sequence inside
+    (`_q_col_parallel`) where the mesh allows it."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
+    q = _q_col_parallel(x, params["wq"].to(dt), cfg.num_heads) if tp_sp \
+        else None
+    if q is None:
+        q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
     k = torch.einsum("bsd,dhe->bshe", x, params["wk"].to(dt))
     v = torch.einsum("bsd,dhe->bshe", x, params["wv"].to(dt))
     if cfg.qk_norm and "q_norm" in params:
@@ -191,96 +225,252 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+def _prefill_attention(cfg: ModelConfig, q, k, v, causal: bool,
+                       window: int) -> torch.Tensor:
+    """The prefill / train attention of ``cfg.attn_impl`` ("auto": flash
+    above 1024 positions; the brick scan where a softcap rules flash
+    out)."""
+    S = q.shape[1]
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "flash" if S > 1024 else "full"
+    if impl == "flash" and cfg.attn_logit_softcap:
+        impl = "brick"   # flash path has no softcap support
+    if impl == "flash":
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        return flash_attention(q, k, v, causal, window,
+                               min(cfg.attn_chunk_q, S),
+                               min(cfg.attn_chunk_kv, S),
+                               "pallas" if cfg.use_pallas else "jnp")
+    if impl == "brick":
+        return brick_attention(q, k, v, causal=causal, window=window,
+                               cq=cfg.attn_chunk_q, ck=cfg.attn_chunk_kv,
+                               softcap=cfg.attn_logit_softcap)
+    return full_attention(q, k, v, causal=causal, window=window,
+                          softcap=cfg.attn_logit_softcap)
+
+
+def group_of_heads(h0: int, n: int, rep: int):
+    """The kv heads (or SSM groups) that heads [h0, h0 + n) read, ``rep``
+    heads to a group: a slice (lo, hi) when the n heads split evenly over
+    hi - lo of them in order, else a list of one group per head."""
+    lo, hi = h0 // rep, (h0 + n - 1) // rep + 1
+    per = n // (hi - lo)
+    if per * (hi - lo) == n and all((h0 + i) // rep - lo == i // per
+                                    for i in range(n)):
+        return lo, hi
+    return [(h0 + i) // rep for i in range(n)]
+
+
+def kv_for_heads(k: torch.Tensor, q_axes, k_axes, Hq: int, Hkv: int,
+                 dim: int = 2) -> torch.Tensor:
+    """``k`` (this rank's block of ``Hkv`` kv heads on ``k_axes``, at
+    ``dim``) as the kv heads that this rank's block of ``Hq`` query heads
+    on ``q_axes`` reads, grouped evenly (GQA): the block itself where both
+    split alike, else a slice of the whole kv heads, else one kv head per
+    query head."""
+    from repro_torch.parallel import collectives as C
+    mesh = shlib.current_mesh()
+    nq = C.axis_size(q_axes, mesh)
+    if tuple(q_axes) == tuple(k_axes) and (Hq // nq) % (Hq // Hkv) == 0:
+        return k
+    k = C.all_gather(k, k_axes, mesh, axis=dim)
+    Hq_loc = Hq // nq
+    sel = group_of_heads(C.axis_index(q_axes, mesh) * Hq_loc, Hq_loc,
+                         Hq // Hkv)
+    if isinstance(sel, tuple):
+        return k.narrow(dim, sel[0], sel[1] - sel[0])
+    return k.index_select(dim, torch.tensor(sel, device=k.device))
+
+
+def _pad_heads(cfg: ModelConfig, Hq: int, Hkv: int):
+    """(G, g_pad) where ``pad_attn_heads`` pads each kv group of query
+    heads from G to g_pad so Hkv * g_pad divides the model axis, or None
+    (the reference's rule; never without a mesh)."""
+    if not cfg.pad_attn_heads:
+        return None
+    tp = shlib.axis_sizes(shlib.current_mesh()).get("model", 1)
+    if tp <= 1 or Hq % tp == 0:
+        return None
+    G = Hq // Hkv
+    g_pad = G
+    while (Hkv * g_pad) % tp and g_pad < G + tp:
+        g_pad += 1
+    return (G, g_pad) if (Hkv * g_pad) % tp == 0 else None
+
+
+def _q_col_parallel(x: torch.Tensor, wq: torch.Tensor, Hq: int):
+    """The Q projection with the sequence all-gather inside (the
+    reference's ``_q_col_parallel``): ``x`` whole is cut to its sequence
+    block over ``model`` and gathered back before the product with this
+    rank's head columns.  None where the shapes do not divide (or
+    without a mesh)."""
+    from repro_torch.models.layers import _tp_sp_ok
+    ok = _tp_sp_ok(x.shape[1], Hq)
+    if ok is None:
+        return None
+    from repro_torch.parallel import collectives as C
+    xg = C.all_gather(C.local_chunk(x, "model", ok, 1), "model", ok, axis=1)
+    return torch.einsum("bsd,dhe->bshe", xg, wq)
+
+
 def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     local: bool = False, mode: str = "train",
                     positions: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None, causal: bool = True,
                     index=None) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention sub-block.  Returns (out, new_cache)."""
-    B, S, _ = x.shape
+    """Self-attention sub-block.  Returns (out, the cache, updated in
+    place; None without one).
+
+    Under a mesh every tensor is this rank's block: ``x`` its batch rows
+    (whole sequences), the weights their head blocks, ``cache`` its block
+    of the rules' cache layout; the output is its block of the residual
+    stream."""
+    from repro_torch.models.layers import to_residual
+    from repro_torch.parallel import collectives as C
+    mesh, rules = shlib.current_mesh(), shlib.current_rules()
+    B_loc, S, _ = x.shape
+    Bg = shlib.current_dim("batch", B_loc)
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     window = cfg.window_size if local else 0
     if positions is None:
         if mode == "decode":
-            positions = per_seq(index, B, x.device)[:, None]
+            positions = per_seq(index, B_loc, x.device)[:, None]
         else:
             positions = torch.broadcast_to(
-                torch.arange(S, device=x.device), (B, S))
+                torch.arange(S, device=x.device), (B_loc, S))
+    dt = x.dtype
+    # the weights' head blocks (their param layout)
+    qa = shlib._fit_axes(mesh, Hq, rules.mesh_axes("heads"))
+    ka = shlib._fit_axes(mesh, Hkv, rules.mesh_axes("kv_heads"))
+    q, k, v = _project_qkv(params, x, cfg, positions,
+                           tp_sp=cfg.tp_sp and mode != "decode")
+    b = act_spec((Bg,), "batch")[0]
+    # GQA head padding: when Hq does not divide the model axis, pad each
+    # kv group so the heads shard instead of replicating
+    pad_g = _pad_heads(cfg, Hq, Hkv)
+    Hq_eff = Hq
+    if pad_g:      # q is whole here: Hq does not divide the model axis
+        G, g_pad = pad_g
+        q5 = q.reshape(B_loc, S, Hkv, G, D)
+        q = F.pad(q5, (0, 0, 0, g_pad - G)).reshape(B_loc, S, Hkv * g_pad, D)
+        Hq_eff = Hkv * g_pad
+    # the rules' activation layouts of q, k, v
+    q_spec = act_spec((Bg, S, Hq_eff, D), "batch", None, "heads", None)
+    k_spec = act_spec((Bg, S, Hkv, D), "batch", None, "kv_heads", None)
+    q = C.relayout(q, (b, None, None if pad_g else qa, None), q_spec, mesh)
+    k = C.relayout(k, (b, None, ka, None), k_spec, mesh)
+    v = C.relayout(v, (b, None, ka, None), k_spec, mesh)
+    qa_act, ka_act = entry_axes(q_spec[2]), entry_axes(k_spec[2])
 
-    q, k, v = _project_qkv(params, x, cfg, positions)
-
-    new_cache = None
     if mode == "decode":
         if cache is None:
             raise ValueError("decode needs a cache")
-        Sc = cache["k"].shape[1]
+        Sc = _global_cache_len(cfg, local, cache)
+        c_spec = act_spec((Bg, Sc, Hkv, D), "batch", "kv_seq", "kv_heads",
+                          None)
+        sa = entry_axes(c_spec[1])
         ring = bool(local and window and Sc <= window)
-        idx_vec = per_seq(index, B, x.device)
+        idx_vec = per_seq(index, B_loc, x.device)
         slot = torch.remainder(idx_vec, Sc) if ring else idx_vec
-        k_cache = _cache_update(cache["k"], k, slot)
-        v_cache = _cache_update(cache["v"], v, slot)
-        out = decode_attention(q, k_cache, v_cache, index, window=window,
-                               ring=ring, softcap=cfg.attn_logit_softcap)
-        new_cache = {"k": k_cache, "v": v_cache}
-    else:
-        impl = cfg.attn_impl
-        if impl == "auto":
-            impl = "flash" if S > 1024 else "full"
-        if impl == "flash" and cfg.attn_logit_softcap:
-            impl = "brick"   # flash path has no softcap support
-        if impl == "flash":
-            from repro_torch.kernels.flash_attention.ops import \
-                flash_attention
-            out = flash_attention(q, k, v, causal, window,
-                                  min(cfg.attn_chunk_q, S),
-                                  min(cfg.attn_chunk_kv, S),
-                                  "pallas" if cfg.use_pallas else "jnp")
-        elif impl == "brick":
-            out = brick_attention(q, k, v, causal=causal, window=window,
-                                  cq=cfg.attn_chunk_q, ck=cfg.attn_chunk_kv,
-                                  softcap=cfg.attn_logit_softcap)
+        for name, new in (("k", k), ("v", v)):
+            new = C.relayout(new, k_spec, (b, None, c_spec[2], None), mesh)
+            _cache_write(cache[name], new, slot, Sc, sa)
+        if sa:
+            # every head of q against this rank's sequence block
+            qf = C.relayout(q, q_spec, (b, None, None, None), mesh)
+            kc = C.relayout(cache["k"], c_spec, (b, c_spec[1], None, None),
+                            mesh)
+            vc = C.relayout(cache["v"], c_spec, (b, c_spec[1], None, None),
+                            mesh)
+            out = decode_attention(qf, kc, vc, index, window=window,
+                                   ring=ring, softcap=cfg.attn_logit_softcap,
+                                   seq_axes=sa, Sc=Sc)
+            out = C.relayout(out, (b, None, None, None), q_spec, mesh)
         else:
-            out = full_attention(q, k, v, causal=causal, window=window,
-                                 softcap=cfg.attn_logit_softcap)
+            ca = entry_axes(c_spec[2])
+            kc = kv_for_heads(cache["k"], qa_act, ca, Hq_eff, Hkv)
+            vc = kv_for_heads(cache["v"], qa_act, ca, Hq_eff, Hkv)
+            out = decode_attention(q, kc, vc, index, window=window,
+                                   ring=ring, softcap=cfg.attn_logit_softcap)
+    else:
+        kq = kv_for_heads(k, qa_act, ka_act, Hq_eff, Hkv)
+        vq = kv_for_heads(v, qa_act, ka_act, Hq_eff, Hkv)
+        out = _prefill_attention(cfg, q, kq, vq, causal, window)
         if mode == "prefill" and cache is not None:
-            Sc = cache["k"].shape[1]
-            if Sc >= S:
-                k_cache = _cache_update(cache["k"], k, 0)
-                v_cache = _cache_update(cache["v"], v, 0)
-            else:  # ring (local window) cache keeps the last Sc tokens
-                roll = torch.remainder(
-                    S - Sc + torch.arange(Sc, device=x.device), Sc)
-                order = torch.argsort(roll)
-                k_cache = cache["k"]
-                v_cache = cache["v"]
-                k_cache.copy_(k[:, -Sc:][:, order])
-                v_cache.copy_(v[:, -Sc:][:, order])
-            new_cache = {"k": k_cache, "v": v_cache}
+            Sc = _global_cache_len(cfg, local, cache)
+            c_spec = act_spec((Bg, Sc, Hkv, D), "batch", "kv_seq",
+                              "kv_heads", None)
+            for name, new in (("k", k), ("v", v)):
+                _cache_fill(cache[name], new, k_spec, c_spec, Sc)
+        else:
+            cache = None
 
-    dt = x.dtype
+    if pad_g:
+        out = C.relayout(out, q_spec, (b, None, None, None), mesh)
+        out = out.reshape(B_loc, S, Hkv, pad_g[1], D)[:, :, :, :pad_g[0]]
+        out = out.reshape(B_loc, S, Hq, D)
+        qa_act = ()
+    elif qa_act != qa:
+        out = C.relayout(out, q_spec, (b, None, qa, None), mesh)
+        qa_act = qa
+    if cfg.tp_sp and mode != "decode" and qa_act:
+        from repro_torch.models.layers import row_parallel_proj
+        y = row_parallel_proj(out.to(dt), params["wo"].to(dt),
+                              "bshe,hed->bsd", Hq * D)
+        if y is not None:
+            return to_residual(y, (b, "model", None)), cache
     y = torch.einsum("bshe,hed->bsd", out.to(dt), params["wo"].to(dt))
-    return y, new_cache
+    return to_residual(C.psum(y, qa_act, mesh)), cache
 
 
-def _cache_update(cache: torch.Tensor, kv: torch.Tensor,
-                  slot: Union[int, torch.Tensor]) -> torch.Tensor:
-    """Write kv (B, S_new, ...) into ``cache`` (B, S_c, ...) in place at
-    each sequence's slot (a scalar, or a (B,) vector: continuous batching
-    gives every sequence its own write position) and return it.  Slots are
-    clamped so the write fits, as `jax.lax.dynamic_update_slice` clamps."""
-    Sc, Sn = cache.shape[1], kv.shape[1]
-    kv = kv.to(cache.dtype)
-    if isinstance(slot, int):
-        start = min(max(slot, 0), Sc - Sn)
-        cache[:, start:start + Sn] = kv
-        return cache
-    start = slot.long().clamp(0, Sc - Sn)
-    if Sn == 1:
-        rows = torch.arange(cache.shape[0], device=cache.device)
-        cache[rows, start] = kv[:, 0]
-        return cache
-    for b, s0 in enumerate(start.tolist()):
-        cache[b, s0:s0 + Sn] = kv[b]
-    return cache
+def _global_cache_len(cfg: ModelConfig, local: bool, cache: dict) -> int:
+    if shlib.current_mesh() is None:
+        return cache["k"].shape[1]
+    L = shlib.current_dim("cache_len")
+    return min(L, cfg.window_size) if local else L
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
+                 Sc: int, seq_axes) -> None:
+    """Decode: write ``new`` (B, 1, H, D) at each row's global ``slot``
+    (clamped into the Sc positions, as `jax.lax.dynamic_update_slice`
+    clamps) into ``cache``, this rank's sequence block, where the slot
+    falls in it: a masked write, no host sync."""
+    from repro_torch.parallel import collectives as C
+    Sc_loc = cache.shape[1]
+    base = C.axis_index(seq_axes, shlib.current_mesh()) * Sc_loc
+    loc = slot.long().clamp(0, Sc - 1) - base
+    ok = (loc >= 0) & (loc < Sc_loc)
+    loc = loc.clamp(0, Sc_loc - 1)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, loc] = torch.where(ok[:, None, None],
+                                   new[:, 0].to(cache.dtype),
+                                   cache[rows, loc])
+
+
+def _cache_fill(cache: torch.Tensor, new: torch.Tensor, src, c_spec,
+                Sc: int) -> None:
+    """Prefill: the cache's global positions [0, S) (the last Sc in ring
+    order where S > Sc) from ``new`` (B, S, H, D) in layout ``src``, into
+    ``cache``, this rank's block of ``c_spec``: a relayout from heads to
+    sequence (an all-to-all where one axis moves)."""
+    from repro_torch.parallel import collectives as C
+    mesh = shlib.current_mesh()
+    S = new.shape[1]
+    if Sc >= S:
+        full = F.pad(new, (0, 0, 0, 0, 0, Sc - S))
+        n_valid = S
+    else:  # ring (local window) cache keeps the last Sc tokens
+        roll = torch.remainder(S - Sc + torch.arange(Sc, device=new.device),
+                               Sc)
+        full = new[:, -Sc:][:, torch.argsort(roll)]
+        n_valid = Sc
+    blk = C.relayout(full, (src[0], None, src[2], None), c_spec, mesh)
+    Sc_loc = cache.shape[1]
+    base = C.axis_index(entry_axes(c_spec[1]), mesh) * Sc_loc
+    keep = max(0, min(Sc_loc, n_valid - base))
+    cache[:, :keep] = blk[:, :keep].to(cache.dtype)
 
 
 # --------------------------------------------------------------------------- #

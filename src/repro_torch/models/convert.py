@@ -9,6 +9,10 @@ port's, checking every name and shape against a spec tree when one is
 given.  `state_from_reference` and `state_to_numpy` carry a whole train
 state (``params``, ``opt.m``, ``opt.v``, ``step`` and ``err``) across, in
 both directions, so that both packages can start from one state.
+
+`shard_params` cuts a whole tree (numpy arrays or tensors) into this
+rank's blocks under a mesh's rules (`param_sharding`), and
+`gather_params` puts the blocks of every rank back together.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.swarm_arrays import resolve_device
+from repro_torch.parallel import sharding as shlib
 from repro_torch.parallel.sharding import _set_path, tree_leaves_with_path
 
 
@@ -80,3 +85,41 @@ def state_to_numpy(state: dict) -> dict:
     if isinstance(state, dict):
         return {k: state_to_numpy(v) for k, v in state.items()}
     return state.detach().to("cpu", copy=True).numpy()
+
+
+def shard_params(full_tree: dict, spec_tree: dict, mesh, rules, *,
+                 device="cuda", params: bool = True) -> dict:
+    """This rank's block of every leaf of a whole tree (numpy arrays or
+    tensors), on ``device``, as a tensor of its own: `param_sharding`'s
+    layout (TP + FSDP), or with ``params=False`` (caches)
+    `logical_to_mesh_axes`'."""
+    dev = resolve_device(device)
+    specs = dict(tree_leaves_with_path(spec_tree))
+    out: dict = {}
+    for path, leaf in tree_leaves_with_path(full_tree):
+        s = specs[path]
+        if tuple(np.shape(leaf)) != tuple(s.shape):
+            raise ValueError(f"{path}: shape {tuple(np.shape(leaf))}, spec "
+                             f"{tuple(s.shape)}")
+        lay = (shlib.param_sharding(mesh, s, rules) if params else
+               shlib.logical_to_mesh_axes(mesh, s.shape, s.logical, rules))
+        blk = shlib.local_shard(leaf, lay, mesh)
+        t = (blk if isinstance(blk, torch.Tensor) else _to_tensor(blk))
+        _set_path(out, path, t.to(dev).clone(
+            memory_format=torch.contiguous_format))
+    return out
+
+
+def gather_params(local_tree: dict, spec_tree: dict, mesh, rules, *,
+                  params: bool = True) -> dict:
+    """The inverse of `shard_params`: every rank's blocks gathered back
+    into the whole leaves (a collective: every rank calls it)."""
+    from repro_torch.parallel.collectives import relayout
+    specs = dict(tree_leaves_with_path(spec_tree))
+    out: dict = {}
+    for path, blk in tree_leaves_with_path(local_tree):
+        s = specs[path]
+        lay = (shlib.param_sharding(mesh, s, rules) if params else
+               shlib.logical_to_mesh_axes(mesh, s.shape, s.logical, rules))
+        _set_path(out, path, relayout(blk, lay, (None,) * len(lay), mesh))
+    return out

@@ -1,8 +1,14 @@
 """Shared neural building blocks: norms, RoPE (incl. M-RoPE), embeddings,
 the LM head and the SwiGLU MLP.
 
-Counterpart of `repro.models.layers`, mesh-free, with its losses: the
-sequence-chunked `lm_head_loss` and `cross_entropy`.
+Counterpart of `repro.models.layers`, with its losses (the
+sequence-chunked `lm_head_loss` and `cross_entropy`, one device).  Under
+a mesh (`parallel.sharding.sharding_ctx`) the blocks compute on local
+shards: the embedding lookup over vocab shards (a masked local take and
+a psum), the LM head's logits over vocab shards with the greedy token
+combined across them (`greedy_tokens`), and the MLP column-parallel in,
+row-parallel out, with `col_parallel_mlp_in` / `row_parallel_proj`
+(the sequence all-gather and the psum_scatter) under ``cfg.tp_sp``.
 """
 from __future__ import annotations
 
@@ -13,7 +19,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.parallel.sharding import ParamSpec
+from repro_torch.parallel import sharding as shlib
+from repro_torch.parallel.sharding import ParamSpec, act_spec
 
 
 # --------------------------------------------------------------------------- #
@@ -84,9 +91,11 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # Embedding / head
 # --------------------------------------------------------------------------- #
 def embed_specs(cfg: ModelConfig) -> dict:
+    # fsdp_dim=-2 opts the embedding out of FSDP: the lookup runs over the
+    # vocab(model) shards and the d_model dim must stay whole per shard
     d = {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model),
                                 ("vocab", "embed"), init="embed",
-                                scale=0.02)}
+                                scale=0.02, fsdp_dim=-2)}
     if not cfg.tie_embeddings:
         d["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                  ("embed", "vocab"), scale=1.0)
@@ -94,15 +103,86 @@ def embed_specs(cfg: ModelConfig) -> dict:
     return d
 
 
+def vocab_axes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The mesh axes the vocab dim of the embedding and head shard over
+    (none without a mesh)."""
+    mesh = shlib.current_mesh()
+    if mesh is None:
+        return ()
+    return shlib._fit_axes(mesh, cfg.vocab_size,
+                           shlib.current_rules().mesh_axes("vocab"))
+
+
+def to_residual(y: torch.Tensor, src=None) -> torch.Tensor:
+    """A block's output (B, S, d), this rank's block under ``src`` (by
+    default the batch rows, whole sequences), in the residual stream's
+    layout: the batch over its axes, ``seq_act`` over its own (the serve
+    steps refuse a sequence-parallel one).  The identity without a
+    mesh."""
+    if shlib.current_mesh() is None:
+        return y
+    B = shlib.current_dim("batch")
+    return shlib.shard_act(y, "batch", "seq_act", None,
+                           shape=(B, y.shape[1], y.shape[2]),
+                           src=src or (act_spec((B,), "batch")[0], None,
+                                       None))
+
+
 def embed_tokens(params: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return F.embedding(tokens.long(), params["embedding"]).to(cfg.act_dtype)
+    """Token lookup.  Under a mesh ``tokens`` are this rank's batch rows
+    and the embedding its vocab shard: each shard takes the ids that fall
+    in its range (the others read row 0 and are zeroed) and a psum over
+    the vocab axes combines them, exactly."""
+    emb = params["embedding"]
+    vax = vocab_axes(cfg)
+    if not vax:
+        return to_residual(F.embedding(tokens.long(), emb).to(cfg.act_dtype))
+    from repro_torch.parallel import collectives as C
+    mesh = shlib.current_mesh()
+    V_loc = emb.shape[0]
+    loc = tokens.long() - C.axis_index(vax, mesh) * V_loc
+    ok = (loc >= 0) & (loc < V_loc)
+    g = F.embedding(loc.clamp(0, V_loc - 1), emb).to(cfg.act_dtype)
+    g = g * ok[..., None].to(g.dtype)
+    return to_residual(C.psum(g, vax, mesh))
 
 
 def lm_logits(params: dict, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
+    """Logits (B, S, V); under a mesh this rank's vocab block of them,
+    (B_loc, S, V_loc)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return torch.einsum("bsd,dv->bsv", x, _head_weight(params, cfg))
+
+
+def greedy_tokens(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The argmax over the last dim as int32.  Under a mesh ``logits`` is
+    a vocab block: each shard's max and first argmax are gathered, and
+    the token is the largest value's, ties to the lowest global index,
+    as `jnp.argmax` breaks them."""
+    vax = vocab_axes(cfg)
+    if not vax:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    from repro_torch.parallel import collectives as C
+    mesh = shlib.current_mesh()
+    V_loc = logits.shape[-1]
+    m, a = torch.max(logits.float(), dim=-1)
+    a = a + C.axis_index(vax, mesh) * V_loc
+    ms = C.all_gather(m[..., None], vax, mesh, axis=-1)
+    gs = C.all_gather(a[..., None], vax, mesh, axis=-1)
+    best = ms.max(dim=-1, keepdim=True).values
+    cand = torch.where(ms == best, gs, torch.full_like(gs, 2 ** 62))
+    return cand.min(dim=-1).values.to(torch.int32)
+
+
+def gather_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A vocab block of logits as the whole vocab (all ranks)."""
+    vax = vocab_axes(cfg)
+    if not vax:
+        return logits
+    from repro_torch.parallel import collectives as C
+    return C.all_gather(logits, vax, shlib.current_mesh(), axis=-1)
 
 
 def _head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -182,9 +262,82 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     }
 
 
-def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+def _tp_sp_ok(S: int, cols: int):
+    """The mesh where the reference's shard_map projections of ``tp_sp``
+    apply: a model axis of more than one rank dividing the sequence and
+    the sharded columns, and the batch dividing the data axes; else
+    None."""
+    mesh = shlib.current_mesh()
+    sizes = shlib.axis_sizes(mesh)
+    if sizes.get("model", 1) == 1:
+        return None
+    if S % sizes["model"] or cols % sizes["model"]:
+        return None
+    data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    if shlib.current_dim("batch") % shlib._axis_size(mesh, data_axes):
+        return None
+    return mesh
+
+
+def row_parallel_proj(h: torch.Tensor, w: torch.Tensor, eq: str,
+                      cols: int) -> Optional[torch.Tensor]:
+    """y = einsum(eq, h, w) with the contraction dim model-sharded
+    (``cols`` wide, globally), emitting a psum_scatter over the sequence
+    instead of an all-reduce: the result is sequence-sharded over
+    ``model``, (B_loc, S / mp, d).  None where the shapes do not divide
+    the mesh (the caller takes the einsum and psum)."""
+    mesh = _tp_sp_ok(h.shape[1], cols)
+    if mesh is None:
+        return None
+    from repro_torch.parallel import collectives as C
+    return C.psum_scatter(torch.einsum(eq, h, w), "model", mesh,
+                          scatter_dimension=1)
+
+
+def col_parallel_mlp_in(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                        dff: int):
+    """Column-parallel wi_gate / wi_up with the sequence all-gather inside:
+    ``x`` (B_loc, S, d) whole is cut to its sequence block over ``model``
+    and gathered back, one gather feeding both products.  Returns None
+    where the shapes do not divide the mesh."""
+    mesh = _tp_sp_ok(x.shape[1], dff)
+    if mesh is None:
+        return None
+    from repro_torch.parallel import collectives as C
+    xg = C.all_gather(C.local_chunk(x, "model", mesh, 1), "model", mesh,
+                      axis=1)
+    return (torch.einsum("bsd,df->bsf", xg, wg),
+            torch.einsum("bsd,df->bsf", xg, wu))
+
+
+def mlp_apply(params: dict, x: torch.Tensor, tp_sp: bool = False,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """SwiGLU MLP.  Under a mesh ``x`` is the residual stream's local
+    block, the in-projections are column blocks (``mlp`` axes, of the
+    global width ``d_ff``, which a mesh needs) and ``wo`` a row block:
+    the partial products are summed over the ``mlp`` axes (or
+    psum_scattered over the sequence under ``tp_sp``) and the result is
+    in the residual stream's layout."""
+    from repro_torch.parallel import collectives as C
     dt = x.dtype
-    gate = torch.einsum("bsd,df->bsf", x, params["wi_gate"].to(dt))
-    up = torch.einsum("bsd,df->bsf", x, params["wi_up"].to(dt))
+    mesh = shlib.current_mesh()
+    if mesh is not None and d_ff is None:
+        raise ValueError("mlp_apply under a mesh needs the global d_ff")
+    dff = d_ff or params["wo"].shape[0]
+    max_ = shlib._fit_axes(mesh, dff, shlib.current_rules().mesh_axes("mlp"))
+    pair = (col_parallel_mlp_in(x, params["wi_gate"].to(dt),
+                                params["wi_up"].to(dt), dff)
+            if tp_sp else None)
+    if pair is not None:
+        gate, up = pair
+    else:
+        gate = torch.einsum("bsd,df->bsf", x, params["wi_gate"].to(dt))
+        up = torch.einsum("bsd,df->bsf", x, params["wi_up"].to(dt))
     h = F.silu(gate) * up
-    return torch.einsum("bsf,fd->bsd", h, params["wo"].to(dt))
+    if tp_sp:
+        out = row_parallel_proj(h, params["wo"].to(dt), "bsf,fd->bsd", dff)
+        if out is not None:
+            return to_residual(out, (act_spec(
+                (shlib.current_dim("batch"),), "batch")[0], "model", None))
+    out = torch.einsum("bsf,fd->bsd", h, params["wo"].to(dt))
+    return to_residual(C.psum(out, max_, mesh))

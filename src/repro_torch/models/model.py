@@ -13,7 +13,15 @@ writes into the ``cross_k`` / ``cross_v`` caches and decode reads back (a
 decode batch carries no ``enc_embeds``).
 
 `prefill` and `decode_step` update the caches they are given in place and
-return them with the new ``index``.  `loss_fn` is the train objective; in
+return them with the new ``index``.  Under a mesh
+(`parallel.sharding.sharding_ctx`, installed by the serve steps of
+`training.train_state`) every tensor is this rank's local shard: the
+batch rows, the param blocks of `param_sharding`, the cache blocks of
+`logical_to_mesh_axes`; a leaf that the rules' FSDP axes split is
+gathered to its TP block a layer at a time (`_gather_fsdp`), and the
+caches carry ``"global"`` = (batch, cache_len), the global sizes their
+blocks were cut from (`init_caches`).  The encoder-decoder family runs
+on one device only.  `loss_fn` is the train objective; in
 train mode with ``cfg.remat == "full"`` each repeat's layers run under
 activation checkpointing (the reference's `jax.checkpoint` of its scan
 body), so the backward recomputes them.
@@ -30,7 +38,9 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.parallel.sharding import (ParamSpec, tree_leaves_with_path,
+from repro_torch.parallel import sharding as shlib
+from repro_torch.parallel.sharding import (ParamSpec, init_params,
+                                           tree_leaves_with_path,
                                            tree_map_specs)
 
 _REMAT_DOTS = ("remat='dots' (save the matmul outputs, recompute the rest) "
@@ -160,6 +170,26 @@ def cache_specs_tree(cfg: ModelConfig, batch: int, cache_len: int,
     return tree
 
 
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                src_len: int = 0, *, mesh=None, rules=None, device="cuda"
+                ) -> dict:
+    """Zero caches for ``batch`` sequences of ``cache_len`` positions.
+    With a mesh, this rank's blocks of them under the rules' layout
+    (`logical_to_mesh_axes`; default `infer_rules(cfg)`), and
+    ``"global"`` = (batch, cache_len)."""
+    tree = cache_specs_tree(cfg, batch, cache_len, src_len)
+    if mesh is None:
+        return init_params(0, tree, device=device)
+    rules = rules or shlib.infer_rules(cfg)
+    local = tree_map_specs(lambda s: ParamSpec(
+        shlib.local_shape(s.shape, shlib.logical_to_mesh_axes(
+            mesh, s.shape, s.logical, rules), mesh),
+        s.logical, s.dtype, s.init), tree)
+    out = init_params(0, local, device=device)
+    out["global"] = (batch, cache_len)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Forward
 # --------------------------------------------------------------------------- #
@@ -209,7 +239,7 @@ def apply_layer(cfg: ModelConfig, lspec: LayerSpec, p: dict, x: torch.Tensor,
 
     if lspec.mlp == "dense":
         h = L.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h)
+        x = x + L.mlp_apply(p["mlp"], h, tp_sp=cfg.tp_sp, d_ff=cfg.d_ff)
     elif lspec.mlp == "moe":
         h = L.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
         h, a = moe_lib.moe_block(p["moe"], h, cfg)
@@ -217,6 +247,35 @@ def apply_layer(cfg: ModelConfig, lspec: LayerSpec, p: dict, x: torch.Tensor,
         aux = aux + a
 
     return x, aux, (new_cache or None)
+
+
+def _fsdp_plan(spec_tree) -> Dict[str, tuple]:
+    """path -> (param spec, TP spec) of each leaf that the current rules'
+    FSDP axes split (none outside a mesh or without FSDP axes)."""
+    mesh, rules = shlib.current_mesh(), shlib.current_rules()
+    if mesh is None or not rules.fsdp_axes:
+        return {}
+    plan = {}
+    for path, s in tree_leaves_with_path(spec_tree):
+        ps = shlib.param_sharding(mesh, s, rules)
+        ts = shlib.logical_to_mesh_axes(mesh, s.shape, s.logical, rules)
+        if ps != ts:
+            plan[path] = (ps, ts)
+    return plan
+
+
+def _gather_fsdp(tree, plan: Dict[str, tuple], prefix: str = ""):
+    """``tree`` with each leaf of ``plan`` gathered from its param block
+    to its TP block (an all-gather over the FSDP axes); the rest as is."""
+    if not plan:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _gather_fsdp(v, plan, f"{prefix}.{k}" if prefix else k)
+                for k, v in tree.items()}
+    if prefix not in plan:
+        return tree
+    from repro_torch.parallel.collectives import relayout
+    return relayout(tree, *plan[prefix], shlib.current_mesh())
 
 
 def _index_tree(tree, r: int):
@@ -262,8 +321,14 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
     for gi, g in enumerate(groups):
         gp = params[f"g{gi}"]
         gc = caches[f"g{gi}"] if caches is not None else None
+        plan = (_fsdp_plan(group_param_specs(cfg, g))
+                if shlib.current_mesh() is not None else {})
+        # a stacked leaf whose FSDP took the repeat axis: whole at once
+        gp = _gather_fsdp(gp, {p: v for p, v in plan.items() if v[0][0]})
+        plan = {p: (v[0][1:], v[1][1:]) for p, v in plan.items()
+                if not v[0][0]}
         for r in range(g.repeat):
-            p_slice = _index_tree(gp, r)
+            p_slice = _gather_fsdp(_index_tree(gp, r), plan)
             if remat:
                 x, aux = checkpoint(_remat_body(), cfg, g.layers, p_slice, x,
                                     aux, shared_params, positions, enc_out,
@@ -385,6 +450,8 @@ def backbone(cfg: ModelConfig, params: dict, batch: dict, *,
         else:                    # prefill: every sequence sits at S
             new_idx = torch.full((B,), S, dtype=torch.int32, device=x.device)
         new_caches = {"decoder": new_dec, "index": new_idx}
+        if "global" in caches:
+            new_caches["global"] = caches["global"]
     return x, aux, new_caches
 
 
@@ -392,6 +459,16 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             mode: str = "train", caches=None, index=None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Returns (logits, aux_loss, new_caches)."""
+    if shlib.current_mesh() is not None:
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                "the encoder-decoder family runs on one device: its "
+                "sharded cross attention is not ported")
+        # the leaves outside the layer groups, gathered from FSDP once
+        top = {k: v for k, v in model_param_specs(cfg).items()
+               if k not in ("decoder", "encoder")}
+        params = {**params, **_gather_fsdp(
+            {k: params[k] for k in top}, _fsdp_plan(top))}
     x, aux, new_caches = backbone(cfg, params, batch, mode=mode,
                                   caches=caches, index=index)
     if mode == "prefill":

@@ -28,13 +28,21 @@ over k, with no atomics (a CUDA `index_add_` would add a token's k
 contributions in an order that changes from run to run).  The reference
 adds them in expert order, so sums differ from it in the last bits only.
 
-The sharded dispatch (a2a, replicated, and the int8 a2a), which the
-reference takes under an ambient mesh, comes with the meshes slice (ROADMAP
-queue 1, item 5): the port has no mesh yet, so `moe_block` keeps the
-reference's signature and always runs on one device.
+Under a mesh with a ``model`` axis (`parallel.sharding.sharding_ctx`)
+`moe_block` takes the reference's sharded dispatch (`_moe_block_mesh`):
+``a2a`` when the sequence splits over ``model`` (each rank routes its
+sequence block into a full-E buffer and an all-to-all brings each rank
+its experts' slots, and back), else ``replicated`` (every rank routes
+all its batch rows, runs its own experts and a psum combines), with the
+capacity of the local token count (dropless to 256 tokens), the aux
+statistics averaged across token shards before their product, and the
+int8 all-to-all's forward (``cfg.moe_a2a_int8``; its straight-through
+backward comes with the sharded train step, so it raises under
+autograd).
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional, Tuple
 
@@ -43,7 +51,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_specs
+from repro_torch.parallel import sharding as shlib
 from repro_torch.parallel.sharding import ParamSpec
+
+# the sharded dispatches taken, by strategy ("a2a", "replicated")
+DISPATCH: collections.Counter = collections.Counter()
+
 
 def moe_specs(cfg: ModelConfig) -> dict:
     E, dff, d = cfg.num_experts, cfg.moe_d_ff, cfg.d_model
@@ -119,26 +132,44 @@ def _dispatch_plan(experts: torch.Tensor, capacity: int, e_base: int,
     return keep, dest
 
 
-def _dispatch_compute(xf, gates, experts, keepers, wi_g, wi_u, wo, capacity,
-                      e_base, e_count):
-    """Scatter tokens into an (e_count, capacity, d) buffer, run the
-    experts, gather back.  Returns out (N, d) in xf's dtype."""
+def _dispatch_buffer(xf, experts, capacity, e_base, e_count, keepers=None):
+    """The (e_count, capacity, d) expert buffer of xf's tokens and the
+    plan (keep, dest) that combines its outputs back (`_combine`)."""
     N, d = xf.shape
-    k = gates.shape[1]
+    k = experts.shape[1]
     keep, dest = _dispatch_plan(experts, capacity, e_base, e_count, keepers)
     tok = torch.arange(N, device=xf.device)[:, None].expand(N, k).reshape(-1)
     # slot -> source token; empty slots (and the trash row) read row N = 0
     src = torch.full((e_count * capacity + 1,), N, dtype=torch.long,
                      device=xf.device).index_copy_(0, dest, tok)
     xpad = torch.cat([xf, xf.new_zeros(1, d)])
-    buf = xpad[src[:-1]].reshape(e_count, capacity, d)
+    return xpad[src[:-1]].reshape(e_count, capacity, d), keep, dest
+
+
+def _expert_mlp(buf, wi_g, wi_u, wo):
+    """The experts' SwiGLU on their (E, capacity, d) slots."""
     dt = buf.dtype
-    h_g = torch.bmm(buf, wi_g.to(dt))
-    h_u = torch.bmm(buf, wi_u.to(dt))
-    y = torch.bmm(F.silu(h_g) * h_u, wo.to(dt))
-    y_flat = torch.cat([y.reshape(e_count * capacity, d), y.new_zeros(1, d)])
-    w = (gates.reshape(-1) * keep).to(dt)
+    h = F.silu(torch.bmm(buf, wi_g.to(dt))) * torch.bmm(buf, wi_u.to(dt))
+    return torch.bmm(h, wo.to(dt))
+
+
+def _combine(y, gates, keep, dest):
+    """Each token's k expert outputs (y: (E, capacity, d)), gate-weighted
+    and summed in routing order: (N, d)."""
+    N, k = gates.shape
+    d = y.shape[-1]
+    y_flat = torch.cat([y.reshape(-1, d), y.new_zeros(1, d)])
+    w = (gates.reshape(-1) * keep).to(y.dtype)
     return (y_flat[dest] * w[:, None]).reshape(N, k, d).sum(dim=1)
+
+
+def _dispatch_compute(xf, gates, experts, keepers, wi_g, wi_u, wo, capacity,
+                      e_base, e_count):
+    """Scatter tokens into an (e_count, capacity, d) buffer, run the
+    experts, gather back.  Returns out (N, d) in xf's dtype."""
+    buf, keep, dest = _dispatch_buffer(xf, experts, capacity, e_base,
+                                       e_count, keepers)
+    return _combine(_expert_mlp(buf, wi_g, wi_u, wo), gates, keep, dest)
 
 
 def capacity(cfg: ModelConfig, N: int) -> int:
@@ -153,6 +184,9 @@ def capacity(cfg: ModelConfig, N: int) -> int:
 def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss)."""
+    mesh = shlib.current_mesh()
+    if mesh is not None and "model" in shlib.axis_sizes(mesh):
+        return _moe_block_mesh(params, x, cfg, mesh)
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     xf = x.reshape(B * S, d)
@@ -165,3 +199,90 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig
     if cfg.shared_expert:
         out = out + mlp_apply(params["shared"], x)
     return out, aux
+
+
+# --------------------------------------------------------------------------- #
+# The mesh path: expert parallelism over ``model``
+# --------------------------------------------------------------------------- #
+def local_capacity(cfg: ModelConfig, N_loc: int) -> int:
+    """Slots per expert for a shard's N_loc tokens: dropless to 256
+    tokens, else ceil(N_loc k / E * capacity_factor) (the reference's
+    sharded rule)."""
+    if N_loc <= 256:
+        return max(N_loc, 1)
+    return max(int(math.ceil(N_loc * cfg.experts_per_token / cfg.num_experts
+                             * cfg.capacity_factor)), 1)
+
+
+def a2a_int8(x: torch.Tensor, axes, mesh, split_axis: int,
+             concat_axis: int) -> torch.Tensor:
+    """all_to_all with an int8 payload and a per-row f32 scale (max|x| of
+    the last dim / 127): the forward of the reference's `_a2a_int8`.
+    Its straight-through backward is not ported yet, so this raises for
+    an input that requires grad."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "the int8 all-to-all's backward (straight-through) comes with "
+            "the sharded train step (ROADMAP queue 1, item 5)")
+    from repro_torch.parallel import collectives as C
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    q = C.all_to_all(q, axes, mesh, split_axis, concat_axis)
+    s = C.all_to_all(scale, axes, mesh, split_axis, concat_axis)
+    return (q.float() * s).to(x.dtype)
+
+
+def _moe_block_mesh(params: dict, x: torch.Tensor, cfg: ModelConfig, mesh
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's sharded `moe_block` on this rank: ``x`` is its
+    batch rows of the residual stream (whole sequences), the expert
+    weights its ``E / mp`` experts (``experts`` over ``model``)."""
+    from repro_torch.models.layers import to_residual
+    from repro_torch.parallel import collectives as C
+    sizes = shlib.axis_sizes(mesh)
+    B_loc, S, d = x.shape
+    Bg = shlib.current_dim("batch")
+    E, k = cfg.num_experts, cfg.experts_per_token
+    mp = sizes["model"]
+    if E % mp:
+        raise ValueError(f"{E} experts do not split over model = {mp}")
+    E_loc = E // mp
+    data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    dp = shlib._axis_size(mesh, data_axes)
+    batch_shardable = Bg % dp == 0
+    strategy = "a2a" if S % mp == 0 and S >= mp else "replicated"
+    DISPATCH[strategy] += 1
+    # the reference's token layout for the dispatch, from the residual's
+    b_res = shlib.act_spec((Bg,), "batch")[0]
+    b_in = shlib._entry(data_axes) if batch_shardable else None
+    s_in = "model" if strategy == "a2a" else None
+    xl = C.relayout(x, (b_res, None, None), (b_in, s_in, None), mesh)
+    xf = xl.reshape(-1, d)
+    N_loc = xf.shape[0]
+    cap = local_capacity(cfg, N_loc)
+    gates, experts, probs = _route(xf, params["router"], k)
+    # the aux statistics, averaged across the token shards before their
+    # product, so the sharded aux equals the global batch's
+    f_loc, p_loc = _aux_stats(probs, experts, E)
+    stat_axes = data_axes + ("model",) if strategy == "a2a" else data_axes
+    aux = E * torch.sum(C.pmean(f_loc, stat_axes, mesh)
+                        * C.pmean(p_loc, stat_axes, mesh)) / k
+    wi_g, wi_u, wo = params["wi_gate"], params["wi_up"], params["wo"]
+    if strategy == "a2a":
+        buf, keep, dest = _dispatch_buffer(xf, experts, cap, 0, E)
+        # (E, cap, d) -> each rank its E_loc experts' slots of every rank
+        a2a = a2a_int8 if cfg.moe_a2a_int8 else C.all_to_all
+        y = _expert_mlp(a2a(buf, "model", mesh, 0, 1), wi_g, wi_u, wo)
+        out = _combine(a2a(y, "model", mesh, 1, 0), gates, keep, dest)
+    else:
+        e_base = C.axis_index("model", mesh) * E_loc
+        out = _dispatch_compute(xf, gates, experts, None, wi_g, wi_u, wo, cap,
+                                e_base, E_loc)
+        out = C.psum(out, "model", mesh)
+    out = out.reshape(xl.shape)
+    out = C.relayout(out, (b_in, s_in, None), (b_res, None, None), mesh)
+    if cfg.shared_expert:
+        out = out + mlp_apply(params["shared"], x, d_ff=cfg.moe_d_ff)
+    return to_residual(out), aux

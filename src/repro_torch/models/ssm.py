@@ -6,6 +6,15 @@ a masked (semiseparable) matmul; across chunks a small recurrence on the
 version (the ``use_pallas=False`` path); with ``cfg.use_pallas`` the block
 calls the CUDA kernel through `repro_torch.kernels.ssd.ops.ssd` (the
 `SSDScan` autograd Function, whose backward is this chunked scan's).
+
+Under a mesh (`parallel.sharding.sharding_ctx`) `ssd_block` runs on this
+rank's SSM heads: ``wz`` / ``wx`` / ``conv_x`` /
+``wdt`` / ``A_log`` / ``D`` / ``dt_bias`` / ``gate_norm`` and the rows of
+``wo`` are its blocks of ``ssm_inner`` / ``ssm_heads``, ``wB`` / ``wC`` /
+``conv_B`` / ``conv_C`` stay whole as the rules say, the scan runs on
+the local heads, the gated RMS norm over the sharded d_inner takes its
+mean square with a psum, and ``wo``'s partial products are summed over
+the axes.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.parallel import sharding as shlib
 from repro_torch.parallel.sharding import ParamSpec
 
 
@@ -133,11 +143,36 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def ssd_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               mode: str = "train", cache: Optional[dict] = None
               ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Full Mamba2 block: proj -> conv -> SSD -> gated norm -> out proj."""
+    """Full Mamba2 block: proj -> conv -> SSD -> gated norm -> out proj.
+    Returns (out, the cache, updated in place in prefill and decode).
+
+    Under a mesh every tensor is this rank's block: ``x`` its batch rows
+    (whole sequences), the weights and caches their ``ssm_heads`` /
+    ``ssm_inner`` blocks; the output is its block of the residual
+    stream."""
+    from repro_torch.models.attention import group_of_heads
+    from repro_torch.models.layers import to_residual
+    from repro_torch.parallel import collectives as C
+    mesh, rules = shlib.current_mesh(), shlib.current_rules()
     dt_ = x.dtype
     B, S, _ = x.shape
     H, Pd = cfg.ssm_nheads, cfg.ssm_head_dim
     G, N = cfg.ssm_ngroups, cfg.ssm_state
+    ha = shlib._fit_axes(mesh, H, rules.mesh_axes("ssm_heads"))
+    ia = shlib._fit_axes(mesh, cfg.d_inner, rules.mesh_axes("ssm_inner"))
+    if ha != ia:
+        raise NotImplementedError(
+            f"ssm_heads ({H}) and ssm_inner ({cfg.d_inner}) split over "
+            f"different mesh axes ({ha} and {ia}): the local heads would "
+            "not own their d_inner columns")
+    H_loc = H // C.axis_size(ha, mesh)
+    sel = group_of_heads(C.axis_index(ha, mesh) * H_loc, H_loc, H // G)
+
+    def groups(t: torch.Tensor, dim: int) -> torch.Tensor:
+        # the B / C groups the local heads read, evenly
+        if isinstance(sel, tuple):
+            return t.narrow(dim, sel[0], sel[1] - sel[0])
+        return t.index_select(dim, torch.tensor(sel, device=t.device))
 
     z = torch.einsum("bsd,de->bse", x, params["wz"].to(dt_))
     xs = torch.einsum("bsd,de->bse", x, params["wx"].to(dt_))
@@ -154,44 +189,56 @@ def ssd_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         xs, conv_x = _conv_step(xs, params["conv_x"], cache["conv_x"])
         Bp, conv_b = _conv_step(Bp, params["conv_B"], cache["conv_b"])
         Cp, conv_c = _conv_step(Cp, params["conv_C"], cache["conv_c"])
-        xh = xs.reshape(B, H, Pd)
-        Bb = Bp.reshape(B, G, N).repeat_interleave(H // G, dim=1)  # (B,H,N)
-        Cb = Cp.reshape(B, G, N).repeat_interleave(H // G, dim=1)
-        dt1 = dt_act[:, 0]                                         # (B,H)
+        xh = xs.reshape(B, H_loc, Pd)
+        Bg = groups(Bp.reshape(B, G, N), 1)
+        rep = H_loc // Bg.shape[1]
+        Bb = Bg.repeat_interleave(rep, dim=1)                 # (B,H_loc,N)
+        Cb = groups(Cp.reshape(B, G, N), 1).repeat_interleave(rep, dim=1)
+        dt1 = dt_act[:, 0]                                    # (B,H_loc)
         dA = torch.exp(dt1 * A)
         st = cache["ssm"].float()
         upd = torch.einsum("bh,bhp,bhn->bhpn", dt1, xh.float(), Bb.float())
         st = st * dA[..., None, None] + upd
         y = torch.einsum("bhpn,bhn->bhp", st, Cb.float())
         y = y + params["D"].float()[None, :, None] * xh.float()
-        y = y.reshape(B, 1, cfg.d_inner)
-        new_cache = {"ssm": st.to(cache["ssm"].dtype), "conv_x": conv_x,
-                     "conv_b": conv_b, "conv_c": conv_c}
+        y = y.reshape(B, 1, H_loc * Pd)
+        new = {"ssm": st, "conv_x": conv_x, "conv_b": conv_b,
+               "conv_c": conv_c}
     else:
         xs, conv_x = _causal_conv(xs, params["conv_x"].to(dt_))
         Bp, conv_b = _causal_conv(Bp, params["conv_B"].to(dt_))
         Cp, conv_c = _causal_conv(Cp, params["conv_C"].to(dt_))
-        xh = xs.reshape(B, S, H, Pd)
-        Bv = Bp.reshape(B, S, G, N)
-        Cv = Cp.reshape(B, S, G, N)
+        xh = xs.reshape(B, S, H_loc, Pd)
+        Bv = groups(Bp.reshape(B, S, G, N), 2)
+        Cv = groups(Cp.reshape(B, S, G, N), 2)
         if cfg.use_pallas:
             from repro_torch.kernels.ssd.ops import ssd as ssd_op
             y, fin = ssd_op(xh, dt_act, A, Bv, Cv, chunk=cfg.ssd_chunk)
         else:
             y, fin = ssd_scan(xh, dt_act, A, Bv, Cv, chunk=cfg.ssd_chunk)
         y = y + params["D"].to(y.dtype)[None, None, :, None] * xh.to(y.dtype)
-        y = y.reshape(B, S, cfg.d_inner)
-        new_cache = None
-        if mode == "prefill" and cache is not None:
-            new_cache = {"ssm": fin.to(cache["ssm"].dtype),
-                         "conv_x": conv_x.to(cache["conv_x"].dtype),
-                         "conv_b": conv_b.to(cache["conv_b"].dtype),
-                         "conv_c": conv_c.to(cache["conv_c"].dtype)}
+        y = y.reshape(B, S, H_loc * Pd)
+        new = {"ssm": fin, "conv_x": conv_x, "conv_b": conv_b,
+               "conv_c": conv_c}
+    if mode != "train" and cache is not None:
+        for name, t in new.items():
+            cache[name].copy_(t)
+    else:
+        cache = None
 
-    y = rms_norm(y.to(dt_) * F.silu(z.float()).to(dt_), params["gate_norm"],
-                 cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, params["wo"].to(dt_))
-    return out, new_cache
+    yz = y.to(dt_) * F.silu(z.float()).to(dt_)
+    if ia:
+        # the gated RMS norm over the whole d_inner: its mean square is a
+        # psum of the local sums of squares
+        ss = torch.sum(yz.square(), dim=-1, keepdim=True,
+                       dtype=torch.float32)
+        var = C.psum(ss, ia, mesh) / cfg.d_inner
+        yz = yz * torch.rsqrt(var + cfg.norm_eps).to(dt_) * (
+            1.0 + params["gate_norm"].to(dt_))
+    else:
+        yz = rms_norm(yz, params["gate_norm"], cfg.norm_eps)
+    out = torch.einsum("bse,ed->bsd", yz, params["wo"].to(dt_))
+    return to_residual(C.psum(out, ia, mesh)), cache
 
 
 def _conv_step(x1: torch.Tensor, w: torch.Tensor, state: torch.Tensor

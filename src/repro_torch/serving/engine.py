@@ -13,6 +13,16 @@ Execution: prompts are fed token by token through the decode step of the
 whole slot batch; finished slots are refilled from the queue (continuous
 batching).  The KV cache is one fixed-size pool tensor per layer, slots
 are rows.  `from_swarm` cold-starts a replica from the checkpoint swarm.
+
+With a mesh every rank of it builds the engine and runs every tick: the
+params are cut to this rank's blocks by `infer_rules(cfg)`, the caches
+are its blocks of the rules' layout (slots over the batch axes,
+sequences over ``kv_seq``), and each decode step runs SPMD over the
+whole slot batch (`training.train_state.make_decode_step(cfg, mesh)`).
+A prefill microstep steps every slot there; the other slots' recurrent
+states (SSM and conv caches) are put back afterwards, and their KV
+writes land on their current position with the token they will be fed
+next, which their own next step rewrites alike.
 """
 from __future__ import annotations
 
@@ -27,8 +37,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.swarm_arrays import resolve_device
 from repro_torch.models import model as M
-from repro_torch.parallel.sharding import (ParamSpec, init_params,
-                                           tree_leaves_with_path)
+from repro_torch.parallel import sharding as shlib
+from repro_torch.parallel.sharding import ParamSpec, tree_leaves_with_path
 from repro_torch.training.train_state import make_decode_step
 
 
@@ -53,12 +63,20 @@ class ServeConfig:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
-                 device="cuda"):
+                 mesh=None, device="cuda"):
         """``params`` must lie on ``device`` ("cuda" by default, "cpu"
-        for the plain PyTorch paths)."""
+        for the plain PyTorch paths).  With a ``mesh`` (a `DeviceMesh`
+        whose every rank builds this engine) ``params`` is the whole tree
+        (tensors or numpy arrays), and each rank keeps its blocks."""
         self.cfg = cfg
         self.sc = sc
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = shlib.infer_rules(cfg)
+        if mesh is not None:
+            from repro_torch.models.convert import shard_params
+            params = shard_params(params, M.model_param_specs(cfg), mesh,
+                                  self.rules, device=self.device)
         self.params = params
         # the checkpoint's `extra` dict when the params came from the
         # swarm (from_swarm); None for directly-constructed engines
@@ -70,7 +88,7 @@ class ServingEngine:
                         "w": collections.defaultdict(float),
                         "d": collections.defaultdict(float)}
         self._init_cache()
-        self._decode = make_decode_step(cfg)
+        self._decode = make_decode_step(cfg, mesh, self.rules)
         self._next_id = 0
 
     @classmethod
@@ -97,26 +115,31 @@ class ServingEngine:
         not do yet, and raises."""
         from repro_torch.checkpoint.store import pod_restore
         from repro_torch.checkpoint.swarm_restore import restore_from_agent
-        sharded = [name for name, size in
-                   zip(getattr(mesh, "mesh_dim_names", None) or (),
-                       getattr(mesh, "shape", ()))
-                   if name != pod_axis and size > 1]
-        if sharded:
-            raise NotImplementedError(f"{MESH_SHARDING} (mesh axes "
-                                      f"{sharded})")
+        sharded = any(size > 1 for name, size in
+                      shlib.axis_sizes(mesh).items() if name != pod_axis)
         dev = resolve_device(device)
         template = _on_device(template, dev)
         params, extra = pod_restore(
             lambda: restore_from_agent(agent, app_id, template,
                                        workdir=workdir, device=dev),
             template, mesh, pod_axis, dev)
-        eng = cls(cfg, params, sc, device=dev)
+        eng = cls(cfg, params, sc, mesh=mesh if sharded else None,
+                  device=dev)
         eng.restore_extra = extra
         return eng
 
     def _init_cache(self):
-        tree = M.cache_specs_tree(self.cfg, self.sc.slots, self.sc.max_len)
-        self.caches = init_params(0, tree, device=self.device)
+        self.caches = M.init_caches(self.cfg, self.sc.slots, self.sc.max_len,
+                                    mesh=self.mesh, rules=self.rules,
+                                    device=self.device)
+        # the slots whose cache rows this rank holds
+        self.rows = np.arange(self.sc.slots)
+        if self.mesh is not None:
+            from repro_torch.parallel.collectives import local_chunk
+            axes = shlib.entry_axes(shlib.logical_to_mesh_axes(
+                self.mesh, (self.sc.slots,), ("batch",), self.rules)[0])
+            self.rows = local_chunk(torch.arange(self.sc.slots), axes,
+                                    self.mesh, 0).numpy()
         self.positions = np.zeros(self.sc.slots, np.int64)
         self.tokens = np.zeros((self.sc.slots, 1), np.int32)
 
@@ -166,14 +189,19 @@ class ServingEngine:
     def _reset_slot(self, slot: int) -> None:
         """Zero a slot's rows of every cache.  The SSM and conv states are
         recurrent: a new request must not start from the last one's."""
+        if slot not in self.rows:
+            return
+        row = int(np.nonzero(self.rows == slot)[0][0])
         for _, leaf in tree_leaves_with_path(self.caches["decoder"]):
-            leaf[:, slot].zero_()
+            leaf[:, row].zero_()
 
     def _step_decode(self, only_slot: Optional[int] = None) -> np.ndarray:
         """One decode step of every slot, or with ``only_slot`` of that
         slot alone (a prefill microstep) on views of its cache rows, which
         the step updates in place: the other slots' recurrent states must
         not advance."""
+        if self.mesh is not None:
+            return self._step_decode_mesh(only_slot)
         rows = (slice(None) if only_slot is None
                 else slice(only_slot, only_slot + 1))
         pos = self.positions[rows]
@@ -189,6 +217,33 @@ class ServingEngine:
                   "index": torch.as_tensor(pos.astype(np.int32), device=dev)}
         next_tok, _ = self._decode(self.params, batch, caches)
         self.positions[rows] += 1
+        return next_tok.cpu().numpy()
+
+    def _step_decode_mesh(self, only_slot: Optional[int]) -> np.ndarray:
+        """`_step_decode` SPMD over the whole slot batch; for a prefill
+        microstep the other slots' recurrent states are put back."""
+        dev = self.device
+        batch = {"tokens": torch.as_tensor(self.tokens, device=dev)}
+        if self.cfg.mrope:
+            p3 = np.broadcast_to(self.positions[None, :, None],
+                                 (3, self.sc.slots, 1)).astype(np.int32)
+            batch["positions"] = torch.as_tensor(p3, device=dev)
+        keep = {}
+        if only_slot is not None:
+            keep = {path: leaf.clone() for path, leaf in
+                    tree_leaves_with_path(self.caches["decoder"])
+                    if path.rsplit(".", 1)[-1] in RECURRENT}
+        self.caches["index"] = torch.as_tensor(
+            self.positions[self.rows].astype(np.int32), device=dev)
+        next_tok, _ = self._decode(self.params, batch, self.caches)
+        if only_slot is None:
+            self.positions += 1
+            return next_tok.cpu().numpy()
+        others = torch.as_tensor(self.rows != only_slot, device=dev)
+        for path, leaf in tree_leaves_with_path(self.caches["decoder"]):
+            if path in keep:
+                leaf[:, others] = keep[path][:, others]
+        self.positions[only_slot] += 1
         return next_tok.cpu().numpy()
 
     def step(self) -> int:
@@ -238,10 +293,8 @@ class ServingEngine:
                 for b in self.metrics["p"]}
 
 
-MESH_SHARDING = ("serving over a mesh's non-pod axes (the sharding rules "
-                 "and the sharded layers) comes with the meshes slice "
-                 "(ROADMAP queue 1, item 5); give from_swarm a mesh whose "
-                 "other axes have one rank")
+# the cache leaves that carry a sequence's recurrent state
+RECURRENT = ("ssm", "conv_x", "conv_b", "conv_c")
 
 
 def _on_device(template, dev: torch.device):

@@ -1,6 +1,6 @@
 """Train and serve state construction and step functions.
 
-Counterpart of `repro.training.train_state`, mesh-free.  The train state
+Counterpart of `repro.training.train_state`.  The train state
 is nested dicts of tensors: ``{"params", "opt": {"m", "v"}, "step"}``
 (``step`` a 0-d int32 tensor), and ``"err"`` with gradient compression's
 error feedback.  `make_train_step` returns a function of ``(state,
@@ -9,6 +9,15 @@ place (`optim.adamw.adamw_update`).  `make_prefill_step` and
 `make_decode_step` return functions of ``(params, batch, caches)`` giving
 ``(next_tok, new_caches)`` exactly as the reference's do, with the greedy
 next token as int32.
+
+With a mesh (a `DeviceMesh` with ``mesh_dim_names``; rules
+`infer_rules(cfg)` by default) the serve steps run SPMD on this rank:
+``params`` are its blocks (`models.convert.shard_params`), ``caches``
+its blocks from `models.model.init_caches(..., mesh=)`, ``batch`` the
+whole batch on every rank (each rank takes its rows); the greedy token
+is combined across the vocab shards and gathered over the batch axes,
+so every rank returns the whole batch's.  The train step takes no mesh
+yet.
 """
 from __future__ import annotations
 
@@ -21,8 +30,15 @@ from repro_torch.core.swarm_arrays import resolve_device
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init_specs,
                                      adamw_update)
-from repro_torch.parallel.sharding import (ParamSpec, _set_path, init_params,
+from repro_torch.parallel import sharding as shlib
+from repro_torch.parallel.sharding import (ParamSpec, ShardingRules,
+                                           _set_path, init_params,
                                            tree_leaves_with_path)
+
+MESH_TRAIN = ("the sharded train step (FSDP gradients, the seq_act "
+              "reduce-scatter, the int8 all-to-all's backward) comes with "
+              "the next mesh slice (ROADMAP queue 1, item 5); train with "
+              "mesh=None")
 
 
 def train_state_specs(cfg: ModelConfig, opt: Optional[AdamWConfig] = None
@@ -83,10 +99,15 @@ def _micro_batches(batch: dict, n: int) -> List[dict]:
     return out
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, compress=None):
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
+                    rules: Optional[ShardingRules] = None, compress=None):
     """compress: optional optim.compression.CompressionConfig — applied to
     gradients (with persistent error-feedback state in the train state)
-    before the optimizer, modelling the cross-pod DCN reduction leg."""
+    before the optimizer, modelling the cross-pod DCN reduction leg.  A
+    mesh raises (`MESH_TRAIN`)."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_TRAIN)
+
     def train_step(state, batch):
         n_micro = max(cfg.micro_steps, 1)
         if n_micro == 1:
@@ -132,19 +153,71 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, compress=None):
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
-    @torch.no_grad()
-    def prefill_step(params, batch, caches):
-        last_logits, new_caches = M.prefill(cfg, params, batch, caches)
-        next_tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
-        return next_tok, new_caches
-    return prefill_step
+def local_batch(batch: dict, B: int, mesh, rules: ShardingRules) -> dict:
+    """This rank's rows of a whole batch (mrope "positions" are (3, B,
+    S): rows on dim 1)."""
+    from repro_torch.parallel.collectives import local_chunk
+    axes = shlib.entry_axes(shlib.logical_to_mesh_axes(
+        mesh, (B,), ("batch",), rules)[0])
+    return {k: local_chunk(v, axes, mesh, 1 if k == "positions" else 0)
+            for k, v in batch.items()}
 
 
-def make_decode_step(cfg: ModelConfig):
+def batch_size(batch: dict) -> int:
+    if "tokens" in batch:
+        return batch["tokens"].shape[0]
+    return batch["embeds"].shape[0]
+
+
+def _serve_step(cfg: ModelConfig, fn, mesh, rules, return_logits: bool):
+    """A serve step of ``fn`` (`M.prefill` or `M.decode_step`): the
+    greedy token of its last logits (and the logits, whole on every rank,
+    with ``return_logits``), on one device or SPMD on a mesh."""
+    if mesh is None:
+        @torch.no_grad()
+        def step(params, batch, caches):
+            last_logits, new_caches = fn(cfg, params, batch, caches)
+            next_tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
+            if return_logits:
+                return next_tok, new_caches, last_logits
+            return next_tok, new_caches
+        return step
+    rules = rules or shlib.infer_rules(cfg)
+    if rules.mesh_axes("seq_act"):
+        raise NotImplementedError(
+            "a sequence-parallel residual (seq_act) comes with the sharded "
+            "train step (ROADMAP queue 1, item 5); serve under "
+            "infer_rules(cfg)")
+
     @torch.no_grad()
-    def decode_step(params, batch, caches):
-        last_logits, new_caches = M.decode_step(cfg, params, batch, caches)
-        next_tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
-        return next_tok, new_caches
-    return decode_step
+    def mesh_step(params, batch, caches):
+        from repro_torch.models.layers import gather_logits, greedy_tokens
+        from repro_torch.parallel.collectives import all_gather
+        B, cache_len = caches["global"]
+        if batch_size(batch) != B:
+            raise ValueError(f"a batch of {batch_size(batch)} rows for "
+                             f"caches cut for {B}")
+        with shlib.sharding_ctx(mesh, rules, batch=B, cache_len=cache_len):
+            last_logits, new_caches = fn(cfg, params,
+                                         local_batch(batch, B, mesh, rules),
+                                         caches)
+            tok = greedy_tokens(last_logits, cfg)
+            axes = shlib.entry_axes(shlib.act_spec((B,), "batch")[0])
+            tok = all_gather(tok, axes, mesh)
+            if return_logits:
+                return tok, new_caches, all_gather(
+                    gather_logits(last_logits, cfg), axes, mesh)
+            return tok, new_caches
+    return mesh_step
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None,
+                      rules: Optional[ShardingRules] = None,
+                      return_logits: bool = False):
+    return _serve_step(cfg, M.prefill, mesh, rules, return_logits)
+
+
+def make_decode_step(cfg: ModelConfig, mesh=None,
+                     rules: Optional[ShardingRules] = None,
+                     return_logits: bool = False):
+    return _serve_step(cfg, M.decode_step, mesh, rules, return_logits)

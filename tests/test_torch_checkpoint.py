@@ -246,16 +246,10 @@ def test_serving_engine_from_swarm(tmp_path):
             e.step()
         outs.append([r.out_tokens for r in reqs])
     assert outs[0] == outs[1]
-    # a mesh whose non-pod axes have several ranks would shard the engine,
-    # which waits for the meshes slice; the torrent fan-out over the pod
-    # axis is tests/test_torch_weight_torrent.py's
+    # a mesh whose non-pod axes have several ranks builds the sharded
+    # engine (tests/test_torch_mesh_serve.py, on gloo ranks); the torrent
+    # fan-out over the pod axis is tests/test_torch_weight_torrent.py's
     from types import SimpleNamespace
-    with pytest.raises(NotImplementedError, match="meshes"):
-        ServingEngine.from_swarm(
-            cfg, M.model_param_specs(cfg), ServeConfig(), agent=replica,
-            app_id=app.app_id, device="cpu",
-            mesh=SimpleNamespace(mesh_dim_names=("pod", "model"),
-                                 shape=(1, 2)))
     # no mesh, or no pod axis: restore_distributed is restore
     want, _ = store.restore(M.model_param_specs(cfg), device="cpu")
     for mesh in (None, SimpleNamespace(mesh_dim_names=("data",), shape=(1,))):
