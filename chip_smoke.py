@@ -24,14 +24,14 @@
    virtual-time values under PYTHONHASHSEED=0):
    - Scenario VII at N=2000 and Scenario IX at N=500 with 8 islands
      (both arms): the batched flash crowd;
-   - Scenario VIII at N=200 batched (fault-free and chaos arms: loss,
+   - Scenario VIII at N=24 batched (fault-free and chaos arms: loss,
      duplication, jitter, 30% churn with restarts, a partition), each
      arm's invariants checked on the card, device planes included;
    - one `ChaosScenario` at N=200 on 8 ISP islands with an island cut
      off (the P4P arm under faults), its invariants checked;
-   - Scenario X at N=200 (128 pieces: v1 crowd, v2 delta, scratch
-     re-fetch, and the scalar chaos overlay), which must upgrade every
-     volunteer with no stale piece accepted;
+   - Scenario X at N=24 (80 pieces: v1 crowd, v2 delta, scratch
+     re-fetch, and the scalar chaos overlay on 12 volunteers), which
+     must upgrade every volunteer with no stale piece accepted;
    checks that every swarm kernel launched on this path, that each pump
    launched the piece orders once on its width's route (fused warp
    kernel to 64 pieces, keys + `torch.sort` and only the matcher's wide
@@ -87,7 +87,7 @@
    encoder frames, 320 target tokens, 8 steps), then in bf16 (B=4, 2048
    frames, 512 target tokens, 32 steps) with the same measurements;
 6. the paper's experiments and the torrent ring across ranks: Tables I
-   and IV (six volunteers) and Scenarios V, VI and XI (R=50, 2 GB) on
+   and IV (six volunteers) and Scenarios V, VI and XI (R=8, 256 MB) on
    the scalar protocol against `reference_runs.json`, with each run's
    wall seconds on the host (host work only: a child process runs them
    beside the kernel build and the kernel phase of step 2, and its lines
@@ -106,19 +106,39 @@
    the card as a (data, model) mesh (the collectives cross the host, the
    compute and the kernels stay on the card): `flash_fwd` and `ssd_scan`
    at a rank's local-head shapes against their plain versions; zamba2-7b
-   at full width cut to 13 layers in bf16 (B=4 S=2048, 32 decode steps)
+   at full width cut to 13 layers in bf16 (B=4 S=2048, 16 decode steps)
    on (2, 2), each layer within 2e-2 of the single-device layer on the
    same input; the 7-layer f32 zamba2 of `reference_serve.json` on (2, 2)
    and (1, 4) and the sharded `ServingEngine` against the single-device
    engine; qwen3-moe-30b-a3b at full width cut to 4 layers in bf16 (a2a
-   prefill, replicated decode); the 2-layer f32 qwen3-moe against
+   prefill, 2 replicated decode steps); the 2-layer f32 qwen3-moe against
    `src/repro_torch/reference_serve_mesh.json` (tokens, logits, every
    shard's expert counts and drops).  With two cards or more the f32
    zamba2 also runs on a (1, 2) NCCL mesh.  `python3 chip_smoke.py
    --mesh-serve` builds the kernels and runs this phase alone;
-8. prints the per-kernel JSON line (each row with its launches on the
-   serve, MoE, enc-dec, train and mesh paths), the card's name and power
-   limit, and as the last line `{"ok": true, "device": {...}}`.
+8. training over the same (2, 2) mesh under `DEFAULT_RULES`
+   (`mesh_train_phase`): FSDP over data, TP and the sequence-split
+   residual over model.  In this process, one device: the 7-layer f32
+   zamba2's step (kept on the host) and qwen3-moe-30b-a3b at full width
+   cut to 4 layers, bf16 with f32 masters, B=2 S=2048 (each layer's
+   gradients through the kernels within 5e-2 of the plain route's, the
+   routing pinned; timed steps, expert counts and drops, a profile by
+   class).  Then 4 gloo ranks on the card: `flash_fwd` and `ssd_scan`
+   at a train rank's local shapes against their plain versions; the
+   7-layer f32 zamba2 step on the mesh within 1e-4 (loss), 1e-3
+   (each gradient leaf, relative L2) and 5e-4 (params) of one device's;
+   the 13-layer bf16 zamba2, each layer's gradients within 5e-2 of one
+   device's on the same input and probe, then a warm-up and 2 timed
+   steps with their wire and host-hop bytes, s in collectives, peak
+   memory and launches; the 2-layer f32 qwen3-moe with the exact and
+   the int8 all-to-all (loss within 5e-2, each gradient leaf within
+   0.25 relative L2 of the exact one's, every gradient finite).
+   `python3 chip_smoke.py --mesh-train` builds the kernels and runs
+   this phase alone;
+9. prints the per-kernel JSON line (each row with its launches on the
+   serve, MoE, enc-dec, train, mesh serve and mesh train paths), the
+   card's name and power limit, and as the last line `{"ok": true,
+   "device": {...}}`.
 
 Any failure exits non-zero without the last line.  The protocol iterates
 sets of node names, so the script re-executes itself under
@@ -139,8 +159,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 RUNS_FILE = SRC / "repro_torch" / "reference_runs.json"
 # the entries of reference_runs.json driven on the card, in order
-CHIP_RUNS = ("vii_n2000", "ix_n500_i8", "viii_n200_batched",
-             "chaos_n200_i8_batched", "x_n200")
+# VIII and X at N=24 ("viii_n24_batched", "x_n24_p80": 80 pieces, so
+# still the sort route and the matcher's wide route): at N=200 they took
+# 47-81 s and 27-36 s of host-bound event drain, and the whole script
+# neared its time limit once the mesh train phase joined it
+CHIP_RUNS = ("vii_n2000", "ix_n500_i8", "viii_n24_batched",
+             "chaos_n200_i8_batched", "x_n24_p80")
 SERVE_FILE = SRC / "repro_torch" / "reference_serve.json"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT_OPS_PER_S = 67e12           # non-tensor-core rate (the fp32 table row)
@@ -888,20 +912,23 @@ def model_kernel_phase(torch):
     # the mesh slice's local heads, one rank of a (2, 2) mesh at B=4:
     # zamba2's shared attention (32 heads over model = 2, D=112) and
     # qwen3-moe's (32:4 heads: 16 query heads read 2 kv heads)
-    for Hq, Hkv, D, what in ((16, 16, 112, "zamba2, a mesh rank"),
-                             (16, 2, 128, "qwen3-moe, a mesh rank")):
-        q = up((2, S, Hq, D), torch.bfloat16)
-        k, v = (up((2, S, Hkv, D), torch.bfloat16) for _ in range(2))
+    # and a (2, 2) train rank's: one row of zamba2's
+    for Bm, Hq, Hkv, D, what in (
+            (2, 16, 16, 112, "zamba2, a mesh rank"),
+            (2, 16, 2, 128, "qwen3-moe, a mesh rank"),
+            (1, 16, 16, 112, "zamba2, a mesh train rank")):
+        q = up((Bm, S, Hq, D), torch.bfloat16)
+        k, v = (up((Bm, S, Hkv, D), torch.bfloat16) for _ in range(2))
         out, lse = fk.flash_fwd(q, k, v, causal=True)
         want, _ = fk.flash_fwd_plain(q, k, v, causal=True)
-        case = f"B=2 S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16 ({what})"
+        case = f"B={Bm} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16 ({what})"
         check("flash_fwd", case, out, want, 2e-2, "out")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         timed("flash_fwd",
               lambda: fk.flash_fwd(q, k, v, causal=True), None,
               lambda: fk.flash_fwd_plain(q, k, v, causal=True),
               nbytes(q, k, v, out) + lse.numel() * 4,
-              4 * 2 * Hq * D * live_pairs(S, S, True, 0), BF16_OPS_PER_S,
+              4 * Bm * Hq * D * live_pairs(S, S, True, 0), BF16_OPS_PER_S,
               library=lambda: F.scaled_dot_product_attention(
                   qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv))
         del q, k, v, qt, kt, vt, out, lse, want
@@ -961,20 +988,22 @@ def model_kernel_phase(torch):
     case = f"B=2 S={S} H={H} P={P} G={G} N={N} chunk={chunk} bf16 (train)"
     check("ssd_scan", case, y, wy, 1e-2, "y", relative=True)
     check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
-    # a rank of the (2, 2) mesh: B=4 over data, 112 SSM heads over model
-    args = ssd_inputs(2, S, H // 2, P, G, N, torch.bfloat16)
-    y, fin = ssk.ssd_scan(*args, chunk=chunk)
-    wy, wfin = ssk.ssd_scan_plain(*args, chunk=chunk)
-    case = (f"B=2 S={S} H={H // 2} P={P} G={G} N={N} chunk={chunk} bf16 "
-            "(a mesh rank)")
-    check("ssd_scan", case, y, wy, 1e-2, "y", relative=True)
-    check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
-    timed("ssd_scan",
-          lambda: ssk.ssd_scan(*args, chunk=chunk),
-          lambda: ssk.ssd_scan_v1(*args, chunk=chunk),
-          lambda: ssk.ssd_scan_plain(*args, chunk=chunk),
-          sum(t.numel() * t.element_size() for t in (*args, y, fin)),
-          ssd_ops(2, S, H // 2, P, N, chunk), BF16_OPS_PER_S)
+    # a rank of the (2, 2) mesh: B=4 over data, 112 SSM heads over model;
+    # a train rank: B=2 over data
+    for Bm, what in ((2, "a mesh rank"), (1, "a mesh train rank")):
+        args = ssd_inputs(Bm, S, H // 2, P, G, N, torch.bfloat16)
+        y, fin = ssk.ssd_scan(*args, chunk=chunk)
+        wy, wfin = ssk.ssd_scan_plain(*args, chunk=chunk)
+        case = (f"B={Bm} S={S} H={H // 2} P={P} G={G} N={N} chunk={chunk} "
+                f"bf16 ({what})")
+        check("ssd_scan", case, y, wy, 1e-2, "y", relative=True)
+        check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
+        timed("ssd_scan",
+              lambda: ssk.ssd_scan(*args, chunk=chunk),
+              lambda: ssk.ssd_scan_v1(*args, chunk=chunk),
+              lambda: ssk.ssd_scan_plain(*args, chunk=chunk),
+              sum(t.numel() * t.element_size() for t in (*args, y, fin)),
+              ssd_ops(Bm, S, H // 2, P, N, chunk), BF16_OPS_PER_S)
     return records
 
 
@@ -1687,46 +1716,19 @@ def block_grads_check(torch, cfg, params, batch, device, tol=5e-2):
     hit, on the tensor-core routes."""
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
-    from repro_torch.parallel.sharding import tree_leaves_with_path
     c16 = cfg.replace(dtype="bfloat16")
     ck, cp = c16.replace(use_pallas=True), c16.replace(use_pallas=False)
     toks = batch["tokens"]
     B, S = toks.shape
     pos = torch.broadcast_to(torch.arange(S, device=toks.device), (B, S))
-    aux = torch.zeros((), device=toks.device)
     gen = torch.Generator(device=toks.device)
     gen.manual_seed(23)
-
-    def cast(a):
-        return a.to(c16.act_dtype) if a.dtype == torch.float32 and \
-            a.ndim >= 2 else a
-
-    def graft(tree, leaves, pre):
-        return {k: graft(v, leaves, f"{pre}{k}.") if isinstance(v, dict)
-                else cast(leaves[f"{pre}{k}"]) for k, v in tree.items()}
-
-    def layer_grads(c, ls, p, x, probe):
-        shared = params["shared_attn"] if ls.shared_attn else None
-        leaves = {"x": x.detach().requires_grad_()}
-        for pre, tree in (("", p), ("shared_attn.", shared or {})):
-            for path, a in tree_leaves_with_path(tree):
-                leaves[pre + path] = a.detach().requires_grad_()
-        with torch.enable_grad():
-            y, _, _ = M.apply_layer(
-                c, ls, graft(p, leaves, ""), leaves["x"], aux,
-                shared_params=(graft(shared, leaves, "shared_attn.")
-                               if shared else None),
-                mode="train", positions=pos)
-            gs = torch.autograd.grad((y.float() * probe).sum(),
-                                     list(leaves.values()))
-        return y.detach(), dict(zip(leaves, gs))
-
     worst, n_leaves, zero = ("", 0.0), 0, []
     per_layer = []
     reset_model_launches()
     with torch.no_grad():
-        x = L.embed_tokens({"embedding": cast(params["embed"]["embedding"])},
-                           toks, c16)
+        x = L.embed_tokens({"embedding": _cast(params["embed"]["embedding"],
+                                               c16)}, toks, c16)
     for gi, g in enumerate(cfg.groups):
         gp = params["decoder"][f"g{gi}"]
         for r in range(g.repeat):
@@ -1735,8 +1737,11 @@ def block_grads_check(torch, cfg, params, batch, device, tol=5e-2):
                 where = f"g{gi}.r{r}.L{li}"
                 probe = torch.randn(x.shape, generator=gen,
                                     device=x.device)
-                _, gk = layer_grads(ck, ls, ps[f"L{li}"], x, probe)
-                x, gp_ = layer_grads(cp, ls, ps[f"L{li}"], x, probe)
+                shared = params["shared_attn"] if ls.shared_attn else None
+                _, gk = layer_grads(torch, ck, ls, ps[f"L{li}"], shared, x,
+                                    probe, pos)
+                x, gp_ = layer_grads(torch, cp, ls, ps[f"L{li}"], shared, x,
+                                     probe, pos)
                 errs = {k: rel_l2(gk[k], gp_[k]) for k in gp_}
                 zero += [f"{where}.{k}" for k in gp_
                          if float(gk[k].norm()) == 0
@@ -2022,7 +2027,11 @@ def swarm_restore_phase(torch, cfg=None, want=None, device="cuda",
 # I and IV (six volunteers, the paper's largest), Scenarios V, VI and XI
 # at their defaults.  Tables II and III take Table I's and IV's path; the
 # CPU tests hold them (tests/test_torch_paper_tables.py).
-PAPER_RUNS = ("table1", "table4", "scenario_v", "scenario_vi", "xi_r50")
+# XI at R=8 replicas of 256 MB (`reference_runs.json`'s "xi_r8_256mb"):
+# R=50 of 2 GB ("xi_r50", ~60 s) held the script ~60 s past the kernel
+# phase, and the whole script near its time limit
+PAPER_RUNS = ("table1", "table4", "scenario_v", "scenario_vi",
+              "xi_r8_256mb")
 
 
 @functools.lru_cache(maxsize=1)
@@ -3231,10 +3240,12 @@ def _mesh_rank(rank, world, init_file, backend, device, job):
         dist.destroy_process_group()
 
 
-def spawn_mesh_ranks(world, root, backend, device, job, limit):
-    """``world`` spawned `mesh_rank` processes on one process group;
-    their readings in rank order.  Fails, after killing every rank, when
-    a rank raises, dies or they outlast ``limit`` seconds."""
+def spawn_mesh_ranks(world, root, backend, device, job, limit,
+                     target=None):
+    """``world`` spawned ``target`` processes (`mesh_rank` by default) on
+    one process group; their readings in rank order.  Fails, after
+    killing every rank, when a rank raises, dies or they outlast
+    ``limit`` seconds."""
     import multiprocessing
     import queue
     ctx = multiprocessing.get_context("spawn")
@@ -3242,7 +3253,7 @@ def spawn_mesh_ranks(world, root, backend, device, job, limit):
     init_file = Path(root) / f"pg_mesh_{backend}"
     Path(root).mkdir(parents=True, exist_ok=True)
     init_file.unlink(missing_ok=True)
-    procs = [ctx.Process(target=mesh_rank, daemon=True,
+    procs = [ctx.Process(target=target or mesh_rank, daemon=True,
                          args=(r, world, str(init_file), backend, device,
                                job, results))
              for r in range(world)]
@@ -3286,11 +3297,11 @@ def mesh_jobs(zamba2=None, moe=None, serve_ref=True, moe_ref=True):
     job = {"meshes": [(2, 2), (1, 4)], "kernels": True}
     job["zamba2"] = {"cfg": zamba2 or get_config("zamba2-7b").replace(
         dtype="bfloat16", use_pallas=True, groups=train_groups()),
-        "seed": 20, "mesh": (2, 2), "B": 4, "S": 2048, "n_decode": 32}
+        "seed": 20, "mesh": (2, 2), "B": 4, "S": 2048, "n_decode": 16}
     moe_groups = (GroupSpec((LayerSpec("attn", "moe"),), 4),)
     job["moe"] = {"cfg": moe or get_config("qwen3-moe-30b-a3b").replace(
         dtype="bfloat16", use_pallas=True, groups=moe_groups),
-        "seed": 20, "mesh": (2, 2), "B": 4, "S": 2048, "n_decode": 4}
+        "seed": 20, "mesh": (2, 2), "B": 4, "S": 2048, "n_decode": 2}
     if serve_ref:
         ref = json.loads(SERVE_FILE.read_text())
         job["serve_ref"] = {
@@ -3314,7 +3325,7 @@ def mesh_serve_phase(torch, job=None, device="cuda", limit=600.0):
     `flash_fwd` and `ssd_scan` against their plain versions at its
     local-head shapes, then (`mesh_jobs`):
     - zamba2-7b at full width cut to 13 layers (the train cut: 2
-      shared-attention hits), bf16, B=4 S=2048 prefill + 32 decode steps
+      shared-attention hits), bf16, B=4 S=2048 prefill + 16 decode steps
       on a (2, 2) mesh; each layer on the same input within 2e-2 of its
       max of the port's single-device layer on the same weights (the
       serve slice's bf16 layer bound), and the whole model's logits
@@ -3326,7 +3337,7 @@ def mesh_serve_phase(torch, job=None, device="cuda", limit=600.0):
       sharded `ServingEngine` on 4 requests equal to the single-device
       engine;
     - qwen3-moe-30b-a3b at full width cut to 4 layers, bf16, B=4 S=2048
-      + 4 decode steps on (2, 2): a2a dispatch in prefill, replicated in
+      + 2 decode steps on (2, 2): a2a dispatch in prefill, replicated in
       decode (experts FSDP over data, gathered a layer at a time);
     - the 2-layer f32 qwen3-moe of `reference_serve_mesh.json`: tokens,
       logits, and every shard's expert counts and drops the file's.
@@ -3430,7 +3441,761 @@ def mesh_serve_phase(torch, job=None, device="cuda", limit=600.0):
             "moe": (q or {}).get("launches", {})}
 
 
-COLLECTIVES = ("psum", "pmax", "all_gather", "all_to_all")
+COLLECTIVES = ("psum", "pmax", "all_gather", "all_to_all", "psum_scatter")
+
+
+# ================= training over a (data, model) mesh ===================== #
+MESH_TRAIN_SEED = 31
+# qwen3-moe's depth for the one-device train step: 4 layers hold
+# 3,114,814,464 params (4 x 623M + the 311M embedding and 311M head); at
+# 18 bytes a parameter (the f32 master, m, v and gradient, and the bf16
+# copy) that is 52.2 GiB, and with ~6 GiB of activations and temporaries
+# it stays under 75 GiB of the card's 80 GB (a step's peak read 61.7
+# GiB on an H100 80GB HBM3 at 700 W)
+MOE_SINGLE_LAYERS = 4
+# phase d: the int8 all-to-all's gradients against the exact ones, the
+# worst leaf's relative L2 over the whole leaf.  A sound run reads 0.112
+# (layer 0's router: the int8 noise flips near-tied top-8 choices of the
+# random router downstream); with the dequant scale 5% off it reads
+# 0.465 while the loss stays within 3.8e-4 of exact (H100 80GB HBM3,
+# 700 W)
+INT8_GRAD_REL = 0.25
+
+
+def mesh_train_jobs(f32=None, bf16=None, moe=None, moe_single=None, B=2,
+                    S=2048):
+    """The mesh-train phase's job (``f32`` / ``bf16`` / ``moe`` /
+    ``moe_single`` replace the full-width configs, for a rehearsal on the
+    CPU):
+    a. ``f32``: zamba2-7b cut to 7 layers (one shared-attention hit),
+       f32, one step on the (2, 2) mesh against one device's;
+    b. ``bf16``: the 13-layer cut of the train slice (2 hits), bf16 with
+       f32 masters, the layer gate and the timed steps;
+    c. ``moe_single``: qwen3-moe-30b-a3b cut to `MOE_SINGLE_LAYERS`
+       layers, bf16, one device;
+    d. ``moe``: qwen3-moe cut to 2 layers, f32, one step with the exact
+       all-to-all and one with the int8 one, on the mesh.
+    All at full width, remat "full", the kernels on, B x S tokens a step
+    (B rows over ``data``)."""
+    from repro_torch.configs.base import GroupSpec, LayerSpec, get_config
+    z = get_config("zamba2-7b")
+    ssd, hit = LayerSpec("ssd", "none"), LayerSpec("ssd", "none", True)
+    q = get_config("qwen3-moe-30b-a3b")
+
+    def moe_cut(n):
+        return q.replace(groups=(GroupSpec((LayerSpec("attn", "moe"),), n),))
+    knobs = dict(use_pallas=True, remat="full")
+    return {
+        "mesh": (2, 2), "B": B, "S": S, "seed": MESH_TRAIN_SEED,
+        "n_steps": 2, "kernels": True,
+        "f32": (f32 or z.replace(groups=(GroupSpec((ssd,) * 5 + (hit,), 1),
+                                         GroupSpec((ssd,), 1)))
+                ).replace(dtype="float32", **knobs),
+        "bf16": (bf16 or z.replace(groups=train_groups())).replace(
+            dtype="bfloat16", **knobs),
+        "moe": (moe or moe_cut(2)).replace(dtype="float32", **knobs),
+        "moe_single": (moe_single or moe_cut(MOE_SINGLE_LAYERS)).replace(
+            dtype="bfloat16", **knobs)}
+
+
+def train_params(torch, cfg, seed, device):
+    """f32 master weights drawn on ``device`` from ``seed`` (the same on
+    every rank of the device), attention scaled to its true fan-in."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params
+    return condition_attention(init_params(seed, M.model_param_specs(cfg),
+                                           device=device))
+
+
+def train_batch(torch, cfg, B, S, seed, device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=device, dtype=torch.int32)
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}
+
+
+def f32_single_step(torch, job, root, device):
+    """Phase a's one-device f32 step (`loss_and_grads`, then
+    `adamw_update` from zero moments: the train step's two halves),
+    written to ``root``/single_f32.pt on the host, the card freed."""
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.parallel.sharding import tree_leaves_with_path
+    from repro_torch.training.train_state import loss_and_grads
+    cfg = job["f32"]
+    params = train_params(torch, cfg, job["seed"], device)
+    batch = train_batch(torch, cfg, job["B"], job["S"], job["seed"], device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync(torch, device)
+    t0 = time.perf_counter()
+    met, grads = loss_and_grads(cfg, params, batch)
+    opt = {k: _zeros_like(torch, params) for k in ("m", "v")}
+    adamw_update(_mesh_opt(), params, grads, opt,
+                 torch.zeros((), dtype=torch.int32, device=device))
+    sync(torch, device)
+    secs = time.perf_counter() - t0
+    host = {"loss": float(met["loss"]),
+            "grads": {p: g.cpu() for p, g in tree_leaves_with_path(grads)},
+            "params": {p: t.cpu() for p, t in tree_leaves_with_path(params)}}
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device == "cuda" else 0.0)
+    del params, grads, opt, batch
+    Path(root).mkdir(parents=True, exist_ok=True)
+    torch.save(host, Path(root) / "single_f32.pt")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"loss": host["loss"], "s": secs, "peak_gib": peak}
+
+
+def _mesh_opt():
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(lr=1e-4, warmup_steps=1)
+
+
+def layer_grads(torch, cfg, ls, p, shared, x, probe, pos, plan=None,
+                shared_plan=None):
+    """(y, {leaf: grad}) of one layer in train mode for the loss
+    sum(y * probe): the grads of its params (``shared_attn.``-prefixed for
+    the shared attention's), cast as the train step casts them, and of
+    its input (``x``).  With ``plan`` (under a `sharding_ctx`) the params
+    are this rank's blocks, gathered from FSDP under autograd as
+    `run_groups` gathers them."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import tree_leaves_with_path
+    leaves = {"x": x.detach().requires_grad_()}
+    for pre, tree in (("", p), ("shared_attn.", shared or {})):
+        for path, a in tree_leaves_with_path(tree):
+            leaves[pre + path] = a.detach().requires_grad_()
+
+    def graft(tree, pre):
+        return {k: graft(v, f"{pre}{k}.") if isinstance(v, dict)
+                else _cast(leaves[f"{pre}{k}"], cfg)
+                for k, v in tree.items()}
+    with torch.enable_grad():
+        lp = graft(p, "")
+        sp = graft(shared, "shared_attn.") if shared else None
+        if plan is not None:
+            lp = M._gather_fsdp(lp, plan)
+            sp = M._gather_fsdp(sp, shared_plan) if sp else None
+        y, _, _ = M.apply_layer(cfg, ls, lp, leaves["x"],
+                                torch.zeros((), device=x.device),
+                                shared_params=sp, mode="train",
+                                positions=pos)
+        gs = torch.autograd.grad((y.float() * probe).sum(),
+                                 list(leaves.values()))
+    return y.detach(), dict(zip(leaves, gs))
+
+
+def _cast(a, cfg):
+    import torch
+    return (a.to(cfg.act_dtype) if a.dtype == torch.float32 and a.ndim >= 2
+            else a)
+
+
+def _layouts(specs, mesh, rules, strip=0):
+    """path -> (param layout, TP layout, the mesh axes the block is
+    replicated on) of a spec tree's leaves, the first ``strip`` dims (a
+    stacked group's repeat axis) dropped, and the stacked leaves whose
+    FSDP took that axis ({path: (param layout, TP layout)}, gathered
+    whole before a slice is taken, as `run_groups` does; their slices
+    then lie in the TP layout)."""
+    from repro_torch.parallel import sharding as shlib
+    names = tuple(mesh.mesh_dim_names)
+    out, whole = {}, {}
+    for path, s in shlib.tree_leaves_with_path(specs):
+        ps = shlib.param_sharding(mesh, s, rules)
+        ts = shlib.logical_to_mesh_axes(mesh, s.shape, s.logical, rules)
+        if any(shlib.entry_axes(e) for e in ps[:strip]):
+            whole[path] = (ps, ts)
+            ps = ts
+        used = {a for e in ps for a in shlib.entry_axes(e)}
+        out[path] = (ps[strip:], ts[strip:],
+                     tuple(a for a in names if a not in used))
+    return out, whole
+
+
+def mesh_layer_gate(torch, cfg, full, local, batch, mesh, rules, tol=5e-2):
+    """Each layer of a bf16 model on the mesh against one device, on the
+    same input (the one-device output of the layer before) and probe:
+    every gradient leaf (the layer's params, the shared attention's at a
+    hit, the input), this rank's blocks summed over the axes they are
+    replicated on and gathered, within ``tol`` relative L2 of one
+    device's, and none zero or non-finite.  Every rank computes both.
+    Returns (worst (leaf, err), the worst leaf of each layer, leaves)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import sharding as shlib
+    B, S = batch["tokens"].shape
+    dev = batch["tokens"].device
+    pos = torch.broadcast_to(torch.arange(S, device=dev), (B, S))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    shared_lay, _ = _layouts(M.shared_attn_specs(cfg), mesh, rules)
+    shared_plan = {p: v[:2] for p, v in shared_lay.items()
+                   if v[0] != v[1]}
+    with torch.no_grad():
+        x = L.embed_tokens({"embedding": _cast(
+            full["embed"]["embedding"], cfg)}, batch["tokens"], cfg)
+    worst, per_layer, n_leaves, bad = ("", 0.0), [], 0, []
+    for gi, g in enumerate(cfg.groups):
+        lay, whole = _layouts(M.group_param_specs(cfg, g), mesh, rules,
+                              strip=1)
+        with shlib.sharding_ctx(mesh, rules, batch=B, seq=S):
+            gl = M._gather_fsdp(local["decoder"][f"g{gi}"], whole)
+        for r in range(g.repeat):
+            pf = M._index_tree(full["decoder"][f"g{gi}"], r)
+            pl = M._index_tree(gl, r)
+            for li, ls in enumerate(g.layers):
+                key = f"L{li}"
+                where = f"g{gi}.r{r}.{key}"
+                probe = torch.randn(x.shape, generator=gen, device=dev)
+                hit = ls.shared_attn
+                y1, g1 = layer_grads(torch, cfg, ls, pf[key],
+                                     full["shared_attn"] if hit else None,
+                                     x, probe, pos)
+                plan = {p[len(key) + 1:]: v[:2] for p, v in lay.items()
+                        if p.startswith(key + ".") and v[0] != v[1]}
+                with shlib.sharding_ctx(mesh, rules, batch=B, seq=S):
+                    res = L.residual_spec()
+                    rows = (res[0], None)
+                    _, g2 = layer_grads(
+                        torch, cfg, ls, pl[key],
+                        local["shared_attn"] if hit else None,
+                        shlib.local_shard(x, res, mesh),
+                        shlib.local_shard(probe, res, mesh),
+                        shlib.local_shard(pos, rows, mesh), plan,
+                        shared_plan)
+                errs = {}
+                for k, gk in g2.items():
+                    if k == "x":
+                        whole = C.relayout(gk, res, (None,) * 3, mesh)
+                    else:
+                        ps, _, rep = (shared_lay[k[len("shared_attn."):]]
+                                      if k.startswith("shared_attn.")
+                                      else lay[f"{key}.{k}"])
+                        whole = C.relayout(C.psum(gk, rep, mesh), ps,
+                                           (None,) * len(ps), mesh)
+                    errs[k] = rel_l2(whole, g1[k])
+                    if not bool(torch.isfinite(whole).all()) or \
+                            float(whole.float().norm()) == 0:
+                        bad.append(f"{where}.{k}")
+                top = max(errs, key=errs.get)
+                per_layer.append((where, top, errs[top]))
+                n_leaves += len(errs)
+                if errs[top] > worst[1]:
+                    worst = (f"{where}.{top}", errs[top])
+                x = y1
+                del g1, g2
+    over = [(w, k, e) for w, k, e in per_layer if e > tol]
+    if bad or over:
+        raise AssertionError(f"mesh layer gate: zero or non-finite "
+                             f"gradients {bad[:5]}; layers over {tol}: "
+                             f"{over}")
+    return worst, per_layer, n_leaves
+
+
+def _gathered_check(torch, tree, specs, mesh, rules, want, rank, kind):
+    """Each leaf of this rank's blocks gathered whole (a collective) and,
+    on rank 0, held against ``want[path]`` (host tensors): the worst
+    relative L2 ("rel") or max abs difference ("abs"), and its leaf."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import sharding as shlib
+    flat = dict(shlib.tree_leaves_with_path(specs))
+    worst = ("", 0.0)
+    for path, blk in shlib.tree_leaves_with_path(tree):
+        lay = shlib.param_sharding(mesh, flat[path], rules)
+        whole = C.relayout(blk, lay, (None,) * len(lay), mesh)
+        if rank != 0:
+            continue
+        w = want[path].to(whole.device)
+        err = (rel_l2(whole, w) if kind == "rel"
+               else float((whole.double() - w.double()).abs().max()))
+        if err > worst[1] or not math.isfinite(err):
+            worst = (path, err)
+        del whole, w
+    return worst
+
+
+def _mesh_train_kernels(torch, device):
+    """`flash_fwd` and `ssd_scan` at a (2, 2) train rank's local-head
+    shapes (one row, zamba2's 16 shared-attention and 56 SSD heads of a
+    model shard) against their plain versions: (name, case, err, tol)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as ssk
+    g = torch.Generator(device=device).manual_seed(9)
+
+    def up(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=device) * scale).to(
+            torch.bfloat16)
+    q, k, v = (up(1, 2048, 16, 112) for _ in range(3))
+    got, _ = fk.flash_fwd(q, k, v, causal=True)
+    want, _ = fk.flash_fwd_plain(q, k, v, causal=True)
+    out = [("flash_fwd", "B=1 S=2048 Hq=Hkv=16 D=112",
+            float((got.float() - want.float()).abs().max()), 2e-2)]
+    x = up(1, 2048, 56, 64)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (1, 2048, 56), generator=g, device=device))
+    A = -torch.exp(torch.randn((56,), generator=g, device=device) * 0.3)
+    Bm, Cm = up(1, 2048, 1, 64, scale=0.5), up(1, 2048, 1, 64, scale=0.5)
+    y, _ = ssk.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    wy, _ = ssk.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=256)
+    out.append(("ssd_scan", "B=1 S=2048 H=56 P=64 N=64 chunk=256",
+                float((y.float() - wy.float()).abs().max()),
+                1e-2 * float(wy.float().abs().max())))
+    return out
+
+
+def mesh_train_rank(rank, world, init_file, backend, device, job, results):
+    """One rank of `mesh_train_phase` (a spawned process): its readings,
+    or its traceback, on ``results``."""
+    import traceback
+    try:
+        results.put((rank, "ok", _mesh_train_rank(rank, world, init_file,
+                                                  backend, device, job)))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def _free(torch, device):
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(torch, device):
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device == "cuda" else 0.0)
+
+
+def _mesh_train_rank(rank, world, init_file, backend, device, job):
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import shard_params
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import (DEFAULT_RULES, _set_path,
+                                               tree_leaves_with_path)
+    from repro_torch.training.train_state import (_leaf_axes,
+                                                  loss_and_grads,
+                                                  make_train_step)
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+    elif job.get("require_cuda", True):
+        raise RuntimeError("a mesh-train rank found no CUDA device")
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=900))
+    rules = DEFAULT_RULES
+    out = {"rank": rank}
+    try:
+        mesh = make_host_mesh(*job["mesh"])
+        B, S, seed = job["B"], job["S"], job["seed"]
+        if on_card and job.get("kernels"):
+            out["kernels"] = _mesh_train_kernels(torch, device)
+
+        def zero_state(params):
+            return {"m": _zeros_like(torch, params),
+                    "v": _zeros_like(torch, params)}
+        step0 = torch.zeros((), dtype=torch.int32, device=device)
+
+        # ---- a. the 7-layer f32 zamba2: one step against one device --- #
+        cfg = job["f32"]
+        specs = M.model_param_specs(cfg)
+        full = train_params(torch, cfg, seed, device)
+        params = shard_params(full, specs, mesh, rules, device=device)
+        del full
+        _free(torch, device)
+        batch = train_batch(torch, cfg, B, S, seed, device)
+        C.reset_stats()
+        sync(torch, device)
+        t0 = time.perf_counter()
+        met, grads = loss_and_grads(cfg, params, batch, mesh, rules)
+        adamw_update(_mesh_opt(), params, grads, zero_state(params), step0,
+                     mesh=mesh, leaf_axes=_leaf_axes(cfg, mesh, rules))
+        sync(torch, device)
+        a = {"loss": float(met["loss"]), "s": time.perf_counter() - t0,
+             "wire": dict(C.STATS), "peak_gib": _peak(torch, device)}
+        want = (torch.load(Path(job["root"]) / "single_f32.pt", mmap=True)
+                if rank == 0 else None)
+        a["worst_grad"] = _gathered_check(
+            torch, grads, specs, mesh, rules, want and want["grads"], rank,
+            "rel")
+        a["param_err"] = _gathered_check(
+            torch, params, specs, mesh, rules, want and want["params"], rank,
+            "abs")
+        if rank == 0:
+            a["loss_single"] = want["loss"]
+        out["f32"] = a
+        del params, grads, want, batch
+        _free(torch, device)
+
+        # ---- b. the 13-layer bf16 zamba2: layer gate, timed steps ----- #
+        cfg = job["bf16"]
+        specs = M.model_param_specs(cfg)
+        full = train_params(torch, cfg, seed, device)
+        params = shard_params(full, specs, mesh, rules, device=device)
+        half = {}
+        for path, t in tree_leaves_with_path(full):
+            _set_path(half, path, _cast(t, cfg))
+        del full
+        _free(torch, device)
+        batch = train_batch(torch, cfg, B, S, seed, device)
+        t0 = time.perf_counter()
+        worst, per_layer, n_leaves = mesh_layer_gate(torch, cfg, half,
+                                                     params, batch, mesh,
+                                                     rules)
+        b = {"gate_worst": worst, "gate_layers": per_layer,
+             "gate_leaves": n_leaves, "gate_s": time.perf_counter() - t0}
+        del half
+        _free(torch, device)
+        state = {"params": params, "opt": zero_state(params), "step": step0}
+        step = make_train_step(cfg, _mesh_opt(), mesh, rules)
+        state, met = step(state, batch)               # warm-up
+        sync(torch, device)
+        _free(torch, device)
+        C.reset_stats()
+        reset_model_launches()
+        times, losses = [], [float(met["loss"])]
+        for _ in range(job["n_steps"]):
+            sync(torch, device)
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            sync(torch, device)
+            times.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+        b.update(step_s=times, losses=losses, wire=dict(C.STATS),
+                 launches=model_launches(), peak_gib=_peak(torch, device))
+        out["bf16"] = b
+        del state, params, batch
+        _free(torch, device)
+
+        # ---- d. the 2-layer f32 qwen3-moe: exact and int8 all-to-all -- #
+        cfg = job["moe"]
+        specs = M.model_param_specs(cfg)
+        full = train_params(torch, cfg, seed, device)
+        init = shard_params(full, specs, mesh, rules, device=device)
+        del full
+        _free(torch, device)
+        batch = train_batch(torch, cfg, B, S, seed, device)
+        axes = _leaf_axes(cfg, mesh, rules)
+        d, exact = {}, {}
+        for int8 in (False, True):
+            c = cfg.replace(moe_a2a_int8=int8)
+            params = {}
+            for path, t in tree_leaves_with_path(init):
+                _set_path(params, path, t.clone())
+            C.reset_stats()
+            sync(torch, device)
+            t0 = time.perf_counter()
+            met, grads = loss_and_grads(c, params, batch, mesh, rules)
+            _, _, stats = adamw_update(_mesh_opt(), params, grads,
+                                       zero_state(params), step0, mesh=mesh,
+                                       leaf_axes=axes)
+            sync(torch, device)
+            rec = d["int8" if int8 else "exact"] = {
+                "loss": float(met["loss"]), "s": time.perf_counter() - t0,
+                "grad_norm": float(stats["grad_norm"]),
+                "finite": all(bool(torch.isfinite(g).all()) for _, g in
+                              tree_leaves_with_path(grads)),
+                "wire": dict(C.STATS), "peak_gib": _peak(torch, device)}
+            if not int8:
+                # kept on the host: a second gradient tree on each of the
+                # four ranks would not fit beside the int8 step's peak
+                exact = {p: g.cpu() for p, g in tree_leaves_with_path(grads)}
+            else:
+                # each leaf's relative L2 against the exact gradient, over
+                # the whole leaf (its blocks' sums psummed over its axes)
+                rec["grad_rel"], rec["grad_rels"] = ("", 0.0), {}
+                for path, g in tree_leaves_with_path(grads):
+                    e = exact[path].to(g.device)
+                    num = C.psum(torch.sum(torch.square(g - e)), axes[path],
+                                 mesh)
+                    den = C.psum(torch.sum(torch.square(e)), axes[path],
+                                 mesh)
+                    rel = float(torch.sqrt(num / torch.clamp(den,
+                                                             min=1e-30)))
+                    rec["grad_rels"][path] = rel
+                    if rel >= rec["grad_rel"][1]:
+                        rec["grad_rel"] = (path, rel)
+            del params, grads
+            _free(torch, device)
+        del exact
+        out["moe"] = d
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_train_phase(torch, cfg, device="cuda", B=2, S=2048, seed=31,
+                    n_steps=2):
+    """Phase c: qwen3-moe-30b-a3b at full width, cut in depth, bf16 with
+    f32 masters, on one device: each layer's gradients through the
+    kernels against the plain torch paths (the kernel route's MoE on the
+    plain route's experts, as `layer_routes` pins them) within 5e-2
+    relative L2, then one warm-up and ``n_steps`` timed AdamW steps with
+    each layer's expert counts and drops and a profile of one step."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.training.train_state import make_train_step
+    t0 = time.perf_counter()
+    params = train_params(torch, cfg, seed, device)
+    batch = train_batch(torch, cfg, B, S, seed, device)
+    n_layers = sum(g.repeat for g in cfg.groups)
+    log(f"[moe-train] {cfg.name}: {n_layers} layers at full width, "
+        f"{M.count_params(cfg)} params (f32 masters) drawn in "
+        f"{time.perf_counter() - t0:.1f}s; B={B} S={S}")
+    # ---- the layer gate ------------------------------------------------- #
+    t0 = time.perf_counter()
+    (g,) = cfg.groups
+    (ls,) = g.layers
+    pos = torch.broadcast_to(torch.arange(S, device=device), (B, S))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(29)
+    route = moe_lib._route
+    with torch.no_grad():
+        x = L.embed_tokens({"embedding": _cast(
+            params["embed"]["embedding"], cfg)}, batch["tokens"], cfg)
+    worst, per_layer, bad = ("", 0.0), [], []
+    for r in range(g.repeat):
+        p = M._index_tree(params["decoder"]["g0"], r)["L0"]
+        probe = torch.randn(x.shape, generator=gen, device=device)
+        chose = []
+
+        def plain_route(xf, w, k):
+            out = route(xf, w, k)
+            chose.append(out[1])
+            return out
+
+        def pinned(xf, w, k):
+            _, _, probs = route(xf, w, k)
+            gg = probs.gather(1, chose[0])
+            return (gg / gg.sum(-1, keepdim=True).clamp_min(1e-9), chose[0],
+                    probs)
+        try:
+            moe_lib._route = plain_route
+            y, gp = layer_grads(torch, cfg.replace(use_pallas=False), ls, p,
+                                None, x, probe, pos)
+            moe_lib._route = pinned
+            _, gk = layer_grads(torch, cfg, ls, p, None, x, probe, pos)
+        finally:
+            moe_lib._route = route
+        errs = {k: rel_l2(gk[k], gp[k]) for k in gp}
+        bad += [f"L{r}.{k}" for k in gp if float(gk[k].norm()) == 0
+                or not bool(torch.isfinite(gk[k]).all())]
+        top = max(errs, key=errs.get)
+        per_layer.append((f"L{r}", top, errs[top]))
+        if errs[top] > worst[1]:
+            worst = (f"L{r}.{top}", errs[top])
+        x = y
+        del gk, gp
+    log(f"[moe-train] bf16 layer by layer, kernels vs plain on the same "
+        f"input and probe (the MoE on the plain route's experts): worst "
+        f"{worst[0]} rel L2 {worst[1]:.3e} (limit 5e-2); worst leaf per "
+        f"layer {json.dumps([(w, k, round(e, 5)) for w, k, e in per_layer])}"
+        f"; zero or non-finite {bad} in {time.perf_counter() - t0:.1f}s")
+    if bad or worst[1] > 5e-2:
+        fail(f"qwen3-moe bf16 layer gate: worst {worst}, bad {bad}")
+    # ---- timed steps ------------------------------------------------------ #
+    state = {"params": params,
+             "opt": {k: _zeros_like(torch, params) for k in ("m", "v")},
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    step = make_train_step(cfg, _mesh_opt())
+    state, met = step(state, batch)                 # warm-up
+    sync(torch, device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_model_launches()
+    calls = []
+
+    def recording(xf, w, k):
+        out = route(xf, w, k)
+        calls.append(out[1])
+        return out
+    times, losses = [], [float(met["loss"])]
+    moe_lib._route = recording
+    try:
+        for i in range(n_steps):
+            sync(torch, device)
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            sync(torch, device)
+            times.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+            if i == 0:
+                # the forward's calls (remat recomputes each layer's)
+                fwd = calls[:n_layers]
+    finally:
+        moe_lib._route = route
+    launches = model_launches()
+    peak = _peak(torch, device)
+    N = B * S
+    cap = moe_lib.capacity(cfg, N)
+    routing = []
+    for e in fwd:
+        counts = torch.bincount(e.reshape(-1), minlength=cfg.num_experts)
+        routing.append({"min": int(counts.min()), "max": int(counts.max()),
+                        "dropped": int((counts - cap).clamp_min(0).sum())})
+    med = statistics.median(times)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"qwen3-moe train losses not finite: {losses}")
+    want = route_counts(2 * n_layers * n_steps, 0, 2 * n_layers * n_steps,
+                        0) if device == "cuda" else route_counts(0, 0, 0, 0)
+    if launches != want:
+        fail(f"{n_steps} qwen3-moe train steps launched {launches}, "
+             f"expected {want}")
+    log(f"[moe-train] bf16 AdamW step: median {med:.4f}s over {n_steps} "
+        f"steps (each {json.dumps([round(v, 4) for v in times])}) = "
+        f"{N / med:.0f} tokens/s; peak memory {peak:.2f} GiB; losses "
+        f"{json.dumps([round(v, 5) for v in losses])}; per layer (forward) "
+        f"expert counts min/max and dropped assignments of {N * cfg.experts_per_token} "
+        f"(capacity {cap}) {json.dumps(routing)}; launches "
+        f"{json.dumps(launches)} ({card_or_cpu(device)})")
+    classes = {}
+    if device == "cuda":
+        with slice_ranges():
+            classes = profile_ranges(torch, "one bf16 qwen3-moe train step",
+                                     lambda: step(state, batch), med * 1e3,
+                                     TRAIN_RANGES + MOE_RANGES)
+    del state, params, batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"step_s": med, "tokens_per_s": N / med, "peak_gib": peak,
+            "launches": launches, "routing": routing, "classes": classes,
+            "gate": worst, "layers": n_layers}
+
+
+def mesh_train_phase(torch, job=None, device="cuda", limit=900.0):
+    """Training over a (data, model) mesh under `DEFAULT_RULES` (FSDP over
+    ``data``, TP and the sequence-split residual over ``model``): the
+    one-device steps of ``job`` (`mesh_train_jobs`) in this process (a's
+    f32 reference step, c's qwen3-moe), the card freed, then 4 spawned
+    gloo ranks sharing it as a (2, 2) mesh run a, b and d (every rank
+    first holds `flash_fwd` and `ssd_scan` at its local shapes against
+    their plain versions).  Fails unless a's mesh step is within 1e-4
+    (loss), 1e-3 relative L2 (each gradient leaf) and 5e-4 (params) of
+    one device's, b's layer gate holds and its steps launch both kernels
+    on every rank, and d's int8 loss lies within 5e-2 of the exact one,
+    its worst gradient leaf within `INT8_GRAD_REL` relative L2 of the
+    exact one's, and every gradient is finite.  Returns rank 0's
+    launches over b's timed steps, and c's."""
+    root = ROOT / "build" / "chip_mesh_train"
+    job = dict(job or mesh_train_jobs(), root=str(root))
+    if device != "cuda":
+        job["require_cuda"] = False
+    t0 = time.perf_counter()
+    single = f32_single_step(torch, job, root, device)
+    log(f"[mesh-train] a: one-device f32 step of the 7-layer zamba2 (B="
+        f"{job['B']} S={job['S']}): loss {single['loss']:.6f} in "
+        f"{single['s']:.2f}s, peak {single['peak_gib']:.2f} GiB "
+        f"({card_or_cpu(device)})")
+    reset_model_launches()
+    moe = moe_train_phase(torch, job["moe_single"], device, job["B"],
+                          job["S"], job["seed"])
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[mesh-train] this process holds "
+        f"{torch.cuda.memory_allocated() if device == 'cuda' else 0} bytes "
+        f"of the card before spawning the ranks")
+    outs = spawn_mesh_ranks(4, root, "gloo", device, job, limit,
+                            target=mesh_train_rank)
+    wall = time.perf_counter() - t0
+    (root / "single_f32.pt").unlink(missing_ok=True)
+    n_tok = job["B"] * job["S"]
+    for o in outs:
+        r = o["rank"]
+        for name, case, err, tol in o.get("kernels", []):
+            log(f"[mesh-train] rank {r} {name} {case} bf16 against its "
+                f"plain version: max abs err {err:.3e} (tolerance "
+                f"{tol:.3g})")
+            if not err <= tol:
+                fail(f"mesh-train rank {r}: {name} {case} off by {err:.3e}")
+        a, b = o["f32"], o["bf16"]
+        for what, run in (("a f32 step", a), ("d exact", o["moe"]["exact"]),
+                          ("d int8", o["moe"]["int8"])):
+            w = run["wire"]
+            log(f"[mesh-train] rank {r} {what}: {run['s']:.2f}s, loss "
+                f"{run['loss']:.6f}; wire {w.get('wire_bytes', 0)} bytes in "
+                f"{sum(v for k, v in w.items() if k in COLLECTIVES)} calls, "
+                f"host hop {w.get('hop_bytes', 0)} bytes, "
+                f"{w.get('seconds', 0):.2f}s in collectives; peak "
+                f"{run['peak_gib']:.2f} GiB ({card_or_cpu(device)})")
+        w, med = b["wire"], statistics.median(b["step_s"])
+        n = job["n_steps"]
+        log(f"[mesh-train] rank {r} b bf16 13-layer step: median {med:.3f}s "
+            f"(each {json.dumps([round(v, 3) for v in b['step_s']])}) = "
+            f"{n_tok / med:.0f} tokens/s of the mesh; per step: wire "
+            f"{w.get('wire_bytes', 0) // n} bytes, "
+            f"{sum(v for k, v in w.items() if k in COLLECTIVES) // n} calls "
+            f"({json.dumps({k: v // n for k, v in w.items() if k in COLLECTIVES})}), "
+            f"host hop {w.get('hop_bytes', 0) // n} bytes, "
+            f"{w.get('seconds', 0) / n:.3f}s in collectives; peak "
+            f"{b['peak_gib']:.2f} GiB; launches a step "
+            f"{json.dumps({k: v // n for k, v in b['launches'].items()})}; "
+            f"losses {json.dumps([round(v, 5) for v in b['losses']])} "
+            f"({card_or_cpu(device)})")
+        n_ssd, n_attn = layer_counts(job["bf16"])
+        want = (route_counts(2 * n_attn * n, 2 * n_ssd * n, 2 * n_attn * n,
+                             2 * n_ssd * n) if device == "cuda"
+                else route_counts(0, 0, 0, 0))
+        if b["launches"] != want:
+            fail(f"mesh-train rank {r}: {n} bf16 steps launched "
+                 f"{b['launches']}, expected {want}")
+        if not all(math.isfinite(v) for v in b["losses"]):
+            fail(f"mesh-train rank {r}: bf16 losses {b['losses']}")
+    o0 = outs[0]
+    a = o0["f32"]
+    loss_err = abs(a["loss"] - a["loss_single"])
+    log(f"[mesh-train] a: the (2, 2) f32 step against one device's: loss "
+        f"{a['loss']:.6f} vs {a['loss_single']:.6f} (diff {loss_err:.3e}, "
+        f"limit 1e-4); worst gradient leaf {a['worst_grad'][0]} rel L2 "
+        f"{a['worst_grad'][1]:.3e} (limit 1e-3); params after the step max "
+        f"abs {a['param_err'][1]:.3e} at {a['param_err'][0]} (limit 5e-4)")
+    if not (loss_err <= 1e-4 and a["worst_grad"][1] <= 1e-3
+            and a["param_err"][1] <= 5e-4):
+        fail("mesh-train a: the mesh f32 step differs from one device's")
+    if any(abs(o["f32"]["loss"] - a["loss"]) > 0 for o in outs):
+        fail("mesh-train a: the ranks' losses differ")
+    b = o0["bf16"]
+    log(f"[mesh-train] b: bf16 layer gate, each layer on the mesh vs one "
+        f"device on the same input and probe: {b['gate_leaves']} gradient "
+        f"leaves, worst {b['gate_worst'][0]} rel L2 {b['gate_worst'][1]:.3e} "
+        f"(limit 5e-2) in {b['gate_s']:.1f}s; worst leaf per layer "
+        f"{json.dumps([(w, k, round(e, 5)) for w, k, e in b['gate_layers']])}")
+    d = o0["moe"]
+    top = sorted(d["int8"]["grad_rels"].items(), key=lambda kv: -kv[1])[:4]
+    lrel = abs(d["int8"]["loss"] - d["exact"]["loss"]) / abs(
+        d["exact"]["loss"])
+    log(f"[mesh-train] d: 2-layer f32 qwen3-moe on (2, 2): int8 all-to-all "
+        f"loss {d['int8']['loss']:.6f} vs exact {d['exact']['loss']:.6f} "
+        f"(rel {lrel:.3e}, limit 5e-2); gradient leaves against exact, rel L2, worst first "
+        f"{json.dumps([(k, float(f'{v:.4g}')) for k, v in top])} (limit "
+        f"{INT8_GRAD_REL:g}); grad norms {d['exact']['grad_norm']:.4f} / "
+        f"{d['int8']['grad_norm']:.4f}")
+    for o in outs:
+        d = o["moe"]
+        rel = abs(d["int8"]["loss"] - d["exact"]["loss"]) / abs(
+            d["exact"]["loss"])
+        path, grel = d["int8"]["grad_rel"]
+        if not (rel < 5e-2 and grel <= INT8_GRAD_REL and d["exact"]["finite"]
+                and d["int8"]["finite"]):
+            fail(f"mesh-train d rank {o['rank']}: int8 loss rel {rel:.3e}, "
+                 f"worst gradient leaf {path} rel L2 {grel:.3e}, finite "
+                 f"{d['exact']['finite']} / {d['int8']['finite']}")
+    log("[mesh-train] d: every gradient finite on every rank")
+    log(f"[mesh-train] wall {wall:.1f}s ({card_or_cpu(device)})")
+    return {"mesh": b["launches"], "per_step": {
+        k: v // job["n_steps"] for k, v in b["launches"].items()},
+        "moe": moe}
 
 
 def card_or_cpu(device):
@@ -3465,7 +4230,8 @@ def main():
         f"count {torch.cuda.device_count()}")
 
     mesh_only = sys.argv[1:] == ["--mesh-serve"]
-    tables = None if mesh_only else start_paper_tables()
+    train_only = sys.argv[1:] == ["--mesh-train"]
+    tables = None if mesh_only or train_only else start_paper_tables()
     t0 = time.perf_counter()
     kernels_build.load()
     info = kernels_build.BUILD_INFO
@@ -3479,6 +4245,13 @@ def main():
         t0 = time.perf_counter()
         mesh_serve_phase(torch)
         log(f"[time] mesh-serve phase {time.perf_counter() - t0:.1f}s")
+        return
+    if train_only:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        mesh_train_phase(torch)
+        log(f"[time] mesh-train phase {time.perf_counter() - t0:.1f}s")
         return
     records = kernel_phase(torch, sk)
     finish_paper_tables(tables)
@@ -3553,6 +4326,17 @@ def main():
     if mesh_launches["zamba2"]["ssd_scan.mma"] <= 0:
         fail("ssd_scan never launched on the mesh's zamba2 path")
 
+    # ---- training over a (data, model) mesh ------------------------------ #
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_train = mesh_train_phase(torch)
+    log(f"[time] mesh-train phase {time.perf_counter() - t0:.1f}s")
+    for k in ("flash_fwd.mma", "ssd_scan.mma"):
+        if mesh_train["mesh"][k] <= 0:
+            fail(f"{k} never launched on the mesh train path")
+    if mesh_train["moe"]["launches"]["flash_fwd.mma"] <= 0:
+        fail("flash_fwd never launched on the qwen3-moe train path")
+
     kernels = []
     for name in ("rarest_keys", "island_has", "match_requests", "flash_fwd",
                  "ssd_scan"):
@@ -3584,7 +4368,20 @@ def main():
                 "case", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "v1_ms", "max_abs_err")}
                 for r in records[name]
-                if "mesh rank" in r["case"] and "ms" in r]})
+                if "mesh rank" in r["case"] and "ms" in r],
+            # rank 0 of the (2, 2) train mesh: the bf16 13-layer zamba2's
+            # timed steps (forward and recompute on its local heads), and
+            # the one-device qwen3-moe train steps
+            "mesh_train_launches": mesh_train["mesh"].get(kernel, 0),
+            "mesh_train_launches_per_step":
+                mesh_train["per_step"].get(kernel, 0),
+            "moe_train_launches": mesh_train["moe"]["launches"].get(
+                kernel, 0),
+            "mesh_train_shapes": [{k: r[k] for k in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "v1_ms", "max_abs_err")}
+                for r in records[name]
+                if "mesh train rank" in r["case"] and "ms" in r]})
     print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

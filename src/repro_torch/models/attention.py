@@ -322,13 +322,15 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """Self-attention sub-block.  Returns (out, the cache, updated in
     place; None without one).
 
-    Under a mesh every tensor is this rank's block: ``x`` its batch rows
-    (whole sequences), the weights their head blocks, ``cache`` its block
-    of the rules' cache layout; the output is its block of the residual
-    stream."""
-    from repro_torch.models.layers import to_residual
+    Under a mesh every tensor is this rank's block: ``x`` its block of
+    the residual stream (gathered to whole sequences here), the weights
+    their head blocks, ``cache`` its block of the rules' cache layout;
+    the output is its block of the residual stream."""
+    from repro_torch.models.layers import (block_input, reduce_to_residual,
+                                           to_residual)
     from repro_torch.parallel import collectives as C
     mesh, rules = shlib.current_mesh(), shlib.current_rules()
+    x = block_input(x)
     B_loc, S, _ = x.shape
     Bg = shlib.current_dim("batch", B_loc)
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -421,7 +423,7 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         if y is not None:
             return to_residual(y, (b, "model", None)), cache
     y = torch.einsum("bshe,hed->bsd", out.to(dt), params["wo"].to(dt))
-    return to_residual(C.psum(y, qa_act, mesh)), cache
+    return reduce_to_residual(y, qa_act), cache
 
 
 def _global_cache_len(cfg: ModelConfig, local: bool, cache: dict) -> int:

@@ -2,13 +2,23 @@
 the LM head and the SwiGLU MLP.
 
 Counterpart of `repro.models.layers`, with its losses (the
-sequence-chunked `lm_head_loss` and `cross_entropy`, one device).  Under
-a mesh (`parallel.sharding.sharding_ctx`) the blocks compute on local
-shards: the embedding lookup over vocab shards (a masked local take and
-a psum), the LM head's logits over vocab shards with the greedy token
-combined across them (`greedy_tokens`), and the MLP column-parallel in,
-row-parallel out, with `col_parallel_mlp_in` / `row_parallel_proj`
-(the sequence all-gather and the psum_scatter) under ``cfg.tp_sp``.
+sequence-chunked `lm_head_loss` and `cross_entropy`).  Under a mesh
+(`parallel.sharding.sharding_ctx`) the blocks compute on local shards:
+the embedding lookup over vocab shards (a masked local take and a
+psum), the LM head's logits over vocab shards with the greedy token
+combined across them (`greedy_tokens`), the loss over vocab shards (the
+log-sum-exp and the gold logit psummed over them, the token sums over
+the batch axes), and the MLP column-parallel in, row-parallel out, with
+`col_parallel_mlp_in` / `row_parallel_proj` (the sequence all-gather
+and the psum_scatter) under ``cfg.tp_sp``.
+
+The residual stream between blocks lies in the rules' layout of
+``("batch", "seq_act", None)`` (`residual_spec`): under `DEFAULT_RULES`
+its sequence is split over ``model``.  A block takes it whole-sequence
+(`block_input`, an all-gather over the sequence where it is split) and
+gives its partial sums back (`reduce_to_residual`, a psum_scatter over
+the sequence where the residual is split over the summed axes, else a
+psum and a slice).
 """
 from __future__ import annotations
 
@@ -113,19 +123,56 @@ def vocab_axes(cfg: ModelConfig) -> Tuple[str, ...]:
                            shlib.current_rules().mesh_axes("vocab"))
 
 
+def residual_spec():
+    """The residual stream's layout under the current mesh: the batch
+    over its axes, the sequence over ``seq_act``'s where the global
+    sequence (``sharding_ctx``'s ``seq``) divides them."""
+    B = shlib.current_dim("batch")
+    S = (shlib.current_dim("seq") if shlib.current_rules().mesh_axes(
+        "seq_act") else 1)
+    return act_spec((B, S, 1), "batch", "seq_act", None)
+
+
+def _rows_spec():
+    return (act_spec((shlib.current_dim("batch"),), "batch")[0], None, None)
+
+
+def block_input(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream's block ``x`` as this rank's batch rows, whole
+    sequences (an all-gather over the sequence where ``seq_act`` splits
+    it; its backward reduce-scatters).  The identity without a mesh."""
+    mesh = shlib.current_mesh()
+    if mesh is None:
+        return x
+    from repro_torch.parallel.collectives import relayout
+    return relayout(x, residual_spec(), _rows_spec(), mesh)
+
+
 def to_residual(y: torch.Tensor, src=None) -> torch.Tensor:
     """A block's output (B, S, d), this rank's block under ``src`` (by
     default the batch rows, whole sequences), in the residual stream's
-    layout: the batch over its axes, ``seq_act`` over its own (the serve
-    steps refuse a sequence-parallel one).  The identity without a
-    mesh."""
-    if shlib.current_mesh() is None:
+    layout (`residual_spec`).  The identity without a mesh."""
+    mesh = shlib.current_mesh()
+    if mesh is None:
         return y
-    B = shlib.current_dim("batch")
-    return shlib.shard_act(y, "batch", "seq_act", None,
-                           shape=(B, y.shape[1], y.shape[2]),
-                           src=src or (act_spec((B,), "batch")[0], None,
-                                       None))
+    from repro_torch.parallel.collectives import relayout
+    return relayout(y, src or _rows_spec(), residual_spec(), mesh)
+
+
+def reduce_to_residual(y: torch.Tensor, axes) -> torch.Tensor:
+    """The sum over ``axes`` of partial products ``y`` (this rank's batch
+    rows, whole sequences) in the residual stream's layout: one
+    psum_scatter over the sequence where the residual splits it over
+    exactly ``axes``, else a psum and `to_residual`."""
+    mesh = shlib.current_mesh()
+    if mesh is None:
+        return y
+    from repro_torch.parallel import collectives as C
+    axes = tuple(axes)
+    res = residual_spec()
+    if axes and shlib.entry_axes(res[1]) == axes:
+        return C.psum_scatter(y, axes, mesh, scatter_dimension=1)
+    return to_residual(C.psum(y, axes, mesh))
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor,
@@ -145,7 +192,7 @@ def embed_tokens(params: dict, tokens: torch.Tensor,
     ok = (loc >= 0) & (loc < V_loc)
     g = F.embedding(loc.clamp(0, V_loc - 1), emb).to(cfg.act_dtype)
     g = g * ok[..., None].to(g.dtype)
-    return to_residual(C.psum(g, vax, mesh))
+    return reduce_to_residual(g, vax)
 
 
 def lm_logits(params: dict, x: torch.Tensor,
@@ -192,13 +239,22 @@ def _head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _chunk_nll(xs: torch.Tensor, w: torch.Tensor, lbl: torch.Tensor,
-               mk: Optional[torch.Tensor]
+               mk: Optional[torch.Tensor], vax, mesh
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum of the chunk's token NLL, its token count), both f32."""
+    """(sum of the chunk's token NLL, its token count), both f32.  ``w``
+    is this rank's vocab block: the log-sum-exp's shift is a pmax, its
+    sum and the gold logit (taken by the shard that holds it) psums over
+    ``vax`` (no vocab axes: the identity, and ``w`` is the whole head)."""
+    from repro_torch.parallel import collectives as C
     logits = torch.einsum("bsd,dv->bsv", xs, w).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lbl.long()[..., None])[..., 0]
-    nll = lse - gold
+    V_loc = logits.shape[-1]
+    m = C.pmax(logits.amax(dim=-1), vax, mesh)
+    se = C.psum(torch.exp(logits - m[..., None]).sum(dim=-1), vax, mesh)
+    loc = lbl.long() - C.axis_index(vax, mesh) * V_loc
+    ok = (loc >= 0) & (loc < V_loc)
+    gold = torch.gather(logits, -1, loc.clamp(0, V_loc - 1)[..., None]
+                        )[..., 0] * ok
+    nll = m + torch.log(se) - C.psum(gold, vax, mesh)
     if mk is not None:
         mkf = mk.float()
         return torch.sum(nll * mkf), torch.sum(mkf)
@@ -215,25 +271,35 @@ def lm_head_loss(params: dict, x: torch.Tensor, labels: torch.Tensor,
     checkpointing, keep the live set to one chunk's (B, c, V) logits
     instead of the whole sequence's.  The reference's chunk rule is
     kept: when c does not divide S, c becomes S // (S // c) and the
-    positions past n * c drop out of the mean, as there."""
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    positions past n * c drop out of the mean, as there.  Under a mesh
+    ``x`` is this rank's rows and the head its vocab block; the chunks'
+    NLL sums and token counts are summed over the batch axes, so every
+    rank holds the global batch's mean."""
+    from repro_torch.parallel import collectives as C
+    mesh = shlib.current_mesh()
+    vax = vocab_axes(cfg)
+    x = rms_norm(block_input(x), params["final_norm"], cfg.norm_eps)
     w = _head_weight(params, cfg)
     S = x.shape[1]
     c = cfg.loss_chunk
     if not c or S <= c:
-        return cross_entropy(torch.einsum("bsd,dv->bsv", x, w), labels,
-                             mask)
-    if S % c:
+        c = S
+    elif S % c:
         c = S // (S // c)  # keep chunks equal; S is a power of two in practice
+    n = S // c
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(S // c):
+    for i in range(n):
         sl = slice(i * c, (i + 1) * c)
-        t, n = checkpoint(_chunk_nll, x[:, sl], w, labels[:, sl],
-                          None if mask is None else mask[:, sl],
-                          use_reentrant=False)
+        args = (x[:, sl], w, labels[:, sl],
+                None if mask is None else mask[:, sl], vax, mesh)
+        t, k = (checkpoint(_chunk_nll, *args, use_reentrant=False) if n > 1
+                else _chunk_nll(*args))
         tot = tot + t
-        cnt = cnt + n
+        cnt = cnt + k
+    bax = shlib.entry_axes(act_spec(
+        (shlib.current_dim("batch", x.shape[0]),), "batch")[0])
+    tot, cnt = C.psum(tot, bax, mesh), C.psum(cnt, bax, mesh)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -318,11 +384,11 @@ def mlp_apply(params: dict, x: torch.Tensor, tp_sp: bool = False,
     the partial products are summed over the ``mlp`` axes (or
     psum_scattered over the sequence under ``tp_sp``) and the result is
     in the residual stream's layout."""
-    from repro_torch.parallel import collectives as C
     dt = x.dtype
     mesh = shlib.current_mesh()
     if mesh is not None and d_ff is None:
         raise ValueError("mlp_apply under a mesh needs the global d_ff")
+    x = block_input(x)
     dff = d_ff or params["wo"].shape[0]
     max_ = shlib._fit_axes(mesh, dff, shlib.current_rules().mesh_axes("mlp"))
     pair = (col_parallel_mlp_in(x, params["wi_gate"].to(dt),
@@ -340,4 +406,4 @@ def mlp_apply(params: dict, x: torch.Tensor, tp_sp: bool = False,
             return to_residual(out, (act_spec(
                 (shlib.current_dim("batch"),), "batch")[0], "model", None))
     out = torch.einsum("bsf,fd->bsd", h, params["wo"].to(dt))
-    return to_residual(C.psum(out, max_, mesh))
+    return reduce_to_residual(out, max_)

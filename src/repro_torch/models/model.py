@@ -21,10 +21,13 @@ batch rows, the param blocks of `param_sharding`, the cache blocks of
 gathered to its TP block a layer at a time (`_gather_fsdp`), and the
 caches carry ``"global"`` = (batch, cache_len), the global sizes their
 blocks were cut from (`init_caches`).  The encoder-decoder family runs
-on one device only.  `loss_fn` is the train objective; in
-train mode with ``cfg.remat == "full"`` each repeat's layers run under
-activation checkpointing (the reference's `jax.checkpoint` of its scan
-body), so the backward recomputes them.
+on one device only.  The residual stream between blocks is in the
+rules' ``("batch", "seq_act", None)`` layout (`layers.residual_spec`),
+its sequence split over ``model`` under `DEFAULT_RULES`.  `loss_fn` is
+the train objective; in train mode with ``cfg.remat == "full"`` each
+repeat's layers run under activation checkpointing (the reference's
+`jax.checkpoint` of its scan body), so the backward recomputes them,
+the repeat's FSDP gather included.
 """
 from __future__ import annotations
 
@@ -328,12 +331,15 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
         plan = {p: (v[0][1:], v[1][1:]) for p, v in plan.items()
                 if not v[0][0]}
         for r in range(g.repeat):
-            p_slice = _gather_fsdp(_index_tree(gp, r), plan)
             if remat:
-                x, aux = checkpoint(_remat_body(), cfg, g.layers, p_slice, x,
-                                    aux, shared_params, positions, enc_out,
+                # the repeat's FSDP gather runs inside the checkpoint, so
+                # the backward's recompute gathers again
+                x, aux = checkpoint(_remat_body(), cfg, g.layers,
+                                    _index_tree(gp, r), plan, x, aux,
+                                    shared_params, positions, enc_out,
                                     causal, use_reentrant=False)
                 continue
+            p_slice = _gather_fsdp(_index_tree(gp, r), plan)
             c_slice = _index_tree(gc, r) if gc is not None else None
             for pidx, ls in enumerate(g.layers):
                 key = f"L{pidx}"
@@ -356,18 +362,21 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
 
 
 def _remat_body():
-    """`_repeat_body` for one checkpointed repeat: its first call is the
-    forward; a later call is the recompute that the backward triggers,
-    run under a ``remat_recompute`` profiler range so that a profile can
-    tell its kernels from the backward node that unpacked the input."""
+    """`_repeat_body` for one checkpointed repeat, from its param blocks
+    and FSDP plan: its first call is the forward; a later call is the
+    recompute that the backward triggers, run under a
+    ``remat_recompute`` profiler range so that a profile can tell its
+    kernels from the backward node that unpacked the input."""
     calls = [0]
 
-    def body(*args):
+    def body(cfg, layers, p_local, plan, *args):
         calls[0] += 1
         if calls[0] == 1:
-            return _repeat_body(*args)
+            return _repeat_body(cfg, layers, _gather_fsdp(p_local, plan),
+                                *args)
         with torch.profiler.record_function("remat_recompute"):
-            return _repeat_body(*args)
+            return _repeat_body(cfg, layers, _gather_fsdp(p_local, plan),
+                                *args)
     return body
 
 
@@ -390,7 +399,7 @@ def _repeat_body(cfg: ModelConfig, layers, p_slice: dict, x: torch.Tensor,
 # --------------------------------------------------------------------------- #
 def _inputs_to_x(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     if "embeds" in batch:
-        return batch["embeds"].to(cfg.act_dtype)
+        return L.to_residual(batch["embeds"].to(cfg.act_dtype))
     return L.embed_tokens(params["embed"], batch["tokens"], cfg)
 
 
@@ -433,7 +442,10 @@ def backbone(cfg: ModelConfig, params: dict, batch: dict, *,
                                   dtype=cfg.act_dtype, device=x.device)
     else:
         x = _inputs_to_x(cfg, params, batch)
-    B, S = x.shape[0], x.shape[1]
+    # the rows and whole sequences of the batch (under a sequence-split
+    # residual x holds a block of the sequence)
+    B = x.shape[0]
+    S = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[1]
     positions = _positions(cfg, batch, B, S, x.device,
                            index if mode == "decode" else None)
     dec_caches = caches["decoder"] if caches is not None else None
@@ -459,18 +471,10 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             mode: str = "train", caches=None, index=None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Returns (logits, aux_loss, new_caches)."""
-    if shlib.current_mesh() is not None:
-        if cfg.is_encdec:
-            raise NotImplementedError(
-                "the encoder-decoder family runs on one device: its "
-                "sharded cross attention is not ported")
-        # the leaves outside the layer groups, gathered from FSDP once
-        top = {k: v for k, v in model_param_specs(cfg).items()
-               if k not in ("decoder", "encoder")}
-        params = {**params, **_gather_fsdp(
-            {k: params[k] for k in top}, _fsdp_plan(top))}
+    params = _gather_top(cfg, params)
     x, aux, new_caches = backbone(cfg, params, batch, mode=mode,
                                   caches=caches, index=index)
+    x = L.block_input(x)
     if mode == "prefill":
         # only the last position's logits are needed to start decoding
         x = x[:, -1:]
@@ -478,11 +482,30 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     return logits, aux, new_caches
 
 
+def _gather_top(cfg: ModelConfig, params: dict) -> dict:
+    """Under a mesh, ``params`` with the leaves outside the layer groups
+    (the embedding and head, the shared attention) gathered from their
+    FSDP blocks once; ``params`` as is without one."""
+    if shlib.current_mesh() is None:
+        return params
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            "the encoder-decoder family runs on one device: its sharded "
+            "cross attention is not ported (ROADMAP queue 1, item 2)")
+    top = {k: v for k, v in model_param_specs(cfg).items()
+           if k not in ("decoder", "encoder")}
+    return {**params, **_gather_fsdp({k: params[k] for k in top},
+                                     _fsdp_plan(top))}
+
+
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict
             ) -> Tuple[torch.Tensor, dict]:
     """The train objective: mean token NLL (masked by ``loss_mask`` when
     the batch has one) plus the router's aux loss.  Returns (loss,
-    {"loss", "nll", "aux"})."""
+    {"loss", "nll", "aux"}).  Under a mesh ``params`` are this rank's
+    blocks and ``batch`` its rows, and the loss is the global batch's,
+    the same on every rank."""
+    params = _gather_top(cfg, params)
     x, aux, _ = backbone(cfg, params, batch, mode="train")
     nll = L.lm_head_loss(params["embed"], x, batch["labels"], cfg,
                          batch.get("loss_mask"))

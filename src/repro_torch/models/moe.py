@@ -1,6 +1,6 @@
-"""Mixture-of-experts layer, single device.
+"""Mixture-of-experts layer.
 
-Counterpart of `repro.models.moe` without its mesh paths: top-k softmax
+Counterpart of `repro.models.moe` (its mesh paths below): top-k softmax
 routing with renormalised gates, the load-balance auxiliary loss, and the
 capacity-bounded dispatch into an ``(E, capacity, d)`` buffer, three
 batched expert products and the gate-weighted combine.  Capacity overflow
@@ -36,9 +36,10 @@ its experts' slots, and back), else ``replicated`` (every rank routes
 all its batch rows, runs its own experts and a psum combines), with the
 capacity of the local token count (dropless to 256 tokens), the aux
 statistics averaged across token shards before their product, and the
-int8 all-to-all's forward (``cfg.moe_a2a_int8``; its straight-through
-backward comes with the sharded train step, so it raises under
-autograd).
+int8 all-to-all (``cfg.moe_a2a_int8``) with its straight-through
+backward, a full-precision all-to-all with the dims swapped.  The
+dispatch and combine carry gradients: the all-to-alls' backwards are
+all-to-alls (`parallel.collectives`).
 """
 from __future__ import annotations
 
@@ -214,35 +215,48 @@ def local_capacity(cfg: ModelConfig, N_loc: int) -> int:
                              * cfg.capacity_factor)), 1)
 
 
+class _A2AInt8(torch.autograd.Function):
+    """The int8 all-to-all, forward compressed; the backward moves the
+    cotangent at full precision with the dims swapped (the reference's
+    `_a2a_int8_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh, split_axis, concat_axis):
+        from repro_torch.parallel import collectives as C
+        ctx.args = (axes, mesh, concat_axis, split_axis)
+        xf = x.float()
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        scale = torch.clamp(amax, min=1e-12) / 127.0
+        q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+        q = C.all_to_all(q, axes, mesh, split_axis, concat_axis)
+        s = C.all_to_all(scale, axes, mesh, split_axis, concat_axis)
+        return (q.float() * s).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.parallel import collectives as C
+        return C.all_to_all(g, *ctx.args), None, None, None, None
+
+
 def a2a_int8(x: torch.Tensor, axes, mesh, split_axis: int,
              concat_axis: int) -> torch.Tensor:
     """all_to_all with an int8 payload and a per-row f32 scale (max|x| of
-    the last dim / 127): the forward of the reference's `_a2a_int8`.
-    Its straight-through backward is not ported yet, so this raises for
-    an input that requires grad."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "the int8 all-to-all's backward (straight-through) comes with "
-            "the sharded train step (ROADMAP queue 1, item 5)")
-    from repro_torch.parallel import collectives as C
-    xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-12) / 127.0
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-    q = C.all_to_all(q, axes, mesh, split_axis, concat_axis)
-    s = C.all_to_all(scale, axes, mesh, split_axis, concat_axis)
-    return (q.float() * s).to(x.dtype)
+    the last dim / 127), the reference's `_a2a_int8`: a straight-through
+    gradient, the backward an exact all-to-all of the cotangent."""
+    return _A2AInt8.apply(x, axes, mesh, split_axis, concat_axis)
 
 
 def _moe_block_mesh(params: dict, x: torch.Tensor, cfg: ModelConfig, mesh
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's sharded `moe_block` on this rank: ``x`` is its
-    batch rows of the residual stream (whole sequences), the expert
-    weights its ``E / mp`` experts (``experts`` over ``model``)."""
-    from repro_torch.models.layers import to_residual
+    block of the residual stream, the expert weights its ``E / mp``
+    experts (``experts`` over ``model``)."""
+    from repro_torch.models.layers import residual_spec
     from repro_torch.parallel import collectives as C
     sizes = shlib.axis_sizes(mesh)
-    B_loc, S, d = x.shape
+    d = x.shape[-1]
+    S = (shlib.current_dim("seq") if shlib.current_rules().mesh_axes(
+        "seq_act") else x.shape[1])
     Bg = shlib.current_dim("batch")
     E, k = cfg.num_experts, cfg.experts_per_token
     mp = sizes["model"]
@@ -255,10 +269,10 @@ def _moe_block_mesh(params: dict, x: torch.Tensor, cfg: ModelConfig, mesh
     strategy = "a2a" if S % mp == 0 and S >= mp else "replicated"
     DISPATCH[strategy] += 1
     # the reference's token layout for the dispatch, from the residual's
-    b_res = shlib.act_spec((Bg,), "batch")[0]
+    res = residual_spec()
     b_in = shlib._entry(data_axes) if batch_shardable else None
     s_in = "model" if strategy == "a2a" else None
-    xl = C.relayout(x, (b_res, None, None), (b_in, s_in, None), mesh)
+    xl = C.relayout(x, res, (b_in, s_in, None), mesh)
     xf = xl.reshape(-1, d)
     N_loc = xf.shape[0]
     cap = local_capacity(cfg, N_loc)
@@ -281,8 +295,7 @@ def _moe_block_mesh(params: dict, x: torch.Tensor, cfg: ModelConfig, mesh
         out = _dispatch_compute(xf, gates, experts, None, wi_g, wi_u, wo, cap,
                                 e_base, E_loc)
         out = C.psum(out, "model", mesh)
-    out = out.reshape(xl.shape)
-    out = C.relayout(out, (b_in, s_in, None), (b_res, None, None), mesh)
+    out = C.relayout(out.reshape(xl.shape), (b_in, s_in, None), res, mesh)
     if cfg.shared_expert:
         out = out + mlp_apply(params["shared"], x, d_ff=cfg.moe_d_ff)
-    return to_residual(out), aux
+    return out, aux

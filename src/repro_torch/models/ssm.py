@@ -13,8 +13,9 @@ rank's SSM heads: ``wz`` / ``wx`` / ``conv_x`` /
 ``wo`` are its blocks of ``ssm_inner`` / ``ssm_heads``, ``wB`` / ``wC`` /
 ``conv_B`` / ``conv_C`` stay whole as the rules say, the scan runs on
 the local heads, the gated RMS norm over the sharded d_inner takes its
-mean square with a psum, and ``wo``'s partial products are summed over
-the axes.
+mean square with a psum (whose backward, a psum too, sums the local
+heads' parts of its gradient), and ``wo``'s partial products are summed
+over the axes.
 """
 from __future__ import annotations
 
@@ -146,14 +147,15 @@ def ssd_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """Full Mamba2 block: proj -> conv -> SSD -> gated norm -> out proj.
     Returns (out, the cache, updated in place in prefill and decode).
 
-    Under a mesh every tensor is this rank's block: ``x`` its batch rows
-    (whole sequences), the weights and caches their ``ssm_heads`` /
-    ``ssm_inner`` blocks; the output is its block of the residual
-    stream."""
+    Under a mesh every tensor is this rank's block: ``x`` its block of
+    the residual stream (gathered to whole sequences here), the weights
+    and caches their ``ssm_heads`` / ``ssm_inner`` blocks; the output is
+    its block of the residual stream."""
     from repro_torch.models.attention import group_of_heads
-    from repro_torch.models.layers import to_residual
+    from repro_torch.models.layers import block_input, reduce_to_residual
     from repro_torch.parallel import collectives as C
     mesh, rules = shlib.current_mesh(), shlib.current_rules()
+    x = block_input(x)
     dt_ = x.dtype
     B, S, _ = x.shape
     H, Pd = cfg.ssm_nheads, cfg.ssm_head_dim
@@ -238,7 +240,7 @@ def ssd_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         yz = rms_norm(yz, params["gate_norm"], cfg.norm_eps)
     out = torch.einsum("bse,ed->bsd", yz, params["wo"].to(dt_))
-    return to_residual(C.psum(out, ia, mesh)), cache
+    return reduce_to_residual(out, ia), cache
 
 
 def _conv_step(x1: torch.Tensor, w: torch.Tensor, state: torch.Tensor

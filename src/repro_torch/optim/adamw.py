@@ -3,7 +3,8 @@
 Counterpart of `repro.optim.adamw`, on nested dicts of tensors.  The math
 is the reference's, in f32: the moments are f32, the bias corrections
 use the step count, and decoupled weight decay applies to matrices only
-(``ndim >= 2``).  `adamw_update` updates the parameters and moments in
+(``ndim >= 2``).  On a mesh the update is elementwise on each rank's
+blocks; only the clipping norm crosses ranks.  `adamw_update` updates the parameters and moments in
 place and returns them; a caller that hands the state to another thread
 snapshots it first (`checkpoint.store.async_save` does).
 """
@@ -55,18 +56,27 @@ def adamw_init_specs(param_specs) -> dict:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(g.float()))
-             for _, g in tree_leaves_with_path(tree))
-    return torch.sqrt(sq)
+def global_norm(tree, mesh=None, leaf_axes=None) -> torch.Tensor:
+    """The L2 norm of every leaf at once.  Under ``mesh`` each leaf is
+    this rank's block, cut over ``leaf_axes[path]``: the sums of squares
+    of the leaves cut alike are psummed over their axes, so each element
+    of the whole tree counts once, a replicated leaf's too."""
+    from repro_torch.parallel import collectives as C
+    by_axes: dict = {}
+    for path, g in tree_leaves_with_path(tree):
+        part = torch.sum(torch.square(g.float()))
+        axes = leaf_axes[path] if mesh is not None else ()
+        by_axes[axes] = by_axes[axes] + part if axes in by_axes else part
+    return torch.sqrt(sum(C.psum(v, a, mesh) for a, v in by_axes.items()))
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step
-                 ) -> Tuple[dict, dict, dict]:
+def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step,
+                 mesh=None, leaf_axes=None) -> Tuple[dict, dict, dict]:
     """Returns (new_params, new_opt_state, stats): ``params`` and the
-    moments, updated in place."""
-    gnorm = global_norm(grads)
+    moments, updated in place.  Under ``mesh`` the trees are this rank's
+    blocks and the clipping norm is the whole tree's (`global_norm`)."""
+    gnorm = global_norm(grads, mesh, leaf_axes)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                          max=1.0) if cfg.grad_clip > 0
              else torch.ones((), device=gnorm.device))

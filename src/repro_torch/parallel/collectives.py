@@ -16,9 +16,29 @@ hop to the host and back, which `STATS` counts (``hop_bytes``,
 group cannot carry otherwise (a CPU tensor on NCCL) raises.
 
 Reductions of bf16 / f16 run in f32 on the wire and round once at the
-end.  `psum_scatter` is an all-reduce and a local slice (gloo has no
-reduce-scatter on every build).  `STATS` also counts each kind's calls
-and the bytes this rank put on the wire.
+end.  On a gloo group `psum_scatter` is an all-reduce and a local slice
+(gloo has no reduce-scatter on every build) and `all_gather` gathers a
+list; on an NCCL group they are `reduce_scatter_tensor` and
+`all_gather_into_tensor`.  `STATS` also counts each kind's calls and the
+bytes this rank put on the wire.
+
+Gradients.  `psum`, `pmean`, `all_gather`, `psum_scatter`, `all_to_all`
+(and so `relayout`, and `local_chunk`, a slice) carry a gradient: each
+backward is its forward's transpose as `shard_map` takes it, with no
+notion of replication: `psum` <-> `psum`, `all_gather` <->
+`psum_scatter` over the same axes and dim, `all_to_all` <-> `all_to_all`
+with its split and concat dims swapped.  Under that transpose the
+cotangent of a value that several ranks hold alike (replicated) is
+split across them: its true cotangent is their sum.  So a train step
+that seeds each rank's backward with its copy of the (replicated) loss
+gets, on every rank, a partial gradient of ``world`` times the loss: a
+leaf's gradient is the psum of its partials over the axes it is
+replicated on, divided by the world size
+(`training.train_state.loss_and_grads`).  No Megatron ``copy_to`` /
+``reduce_from`` pair is needed: under `DEFAULT_RULES` the residual is
+sequence-sharded, a block's entry is an `all_gather` (backward
+reduce-scatter) and its exit a `psum_scatter` (backward all-gather),
+the pair's own collectives.  `pmax` carries no gradient.
 """
 from __future__ import annotations
 
@@ -147,12 +167,131 @@ def _reduce(x: torch.Tensor, axes: Axes, mesh, op, kind: str
     return out
 
 
+def _inverse(order):
+    """Flattened index of each group rank."""
+    inv = [0] * len(order)
+    for f, g in enumerate(order):
+        inv[g] = f
+    return inv
+
+
+def _all_gather(x: torch.Tensor, axes: Tuple[str, ...], mesh, axis: int
+                ) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``axis`` in flattened-index
+    order (no autograd)."""
+    n = axis_size(axes, mesh)
+    if n == 1:
+        return x
+    t0 = time.perf_counter()
+    group, order = _group(mesh, axes)
+    wire = _wire(group)
+    w = _as_words(_to_wire(x, wire))
+    STATS["all_gather"] += 1
+    STATS["wire_bytes"] += w.numel() * w.element_size()
+    if wire == "cuda":
+        # one tensor of the group ranks' blocks, in group-rank order
+        flat = torch.empty((n,) + tuple(w.shape), dtype=w.dtype,
+                           device=w.device)
+        dist.all_gather_into_tensor(flat, w, group=group)
+        parts = list(flat.unbind(0))
+    else:
+        parts = [torch.empty_like(w) for _ in range(n)]
+        dist.all_gather(parts, w, group=group)
+    parts = [parts[order[i]].view(x.dtype) if x.dtype != w.dtype
+             else parts[order[i]] for i in range(n)]
+    out = _from_wire(torch.cat(parts, dim=axis), x.device)
+    STATS["seconds"] += time.perf_counter() - t0
+    return out
+
+
+def _psum_scatter(x: torch.Tensor, axes: Tuple[str, ...], mesh, dim: int
+                  ) -> torch.Tensor:
+    """The sum over ``axes``, this rank keeping its block of ``dim``
+    (no autograd)."""
+    n = axis_size(axes, mesh)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {axes} ({n})")
+    group, order = _group(mesh, axes)
+    if _wire(group) != "cuda":
+        return local_chunk(_reduce(x, axes, mesh, dist.ReduceOp.SUM,
+                                   "psum"), axes, mesh, dim).contiguous()
+    t0 = time.perf_counter()
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    xs = (x.float() if wide else x).movedim(dim, 0)
+    c = xs.shape[0] // n
+    # group rank g receives chunk g: put the block of the flattened
+    # index that rank holds there
+    chunks = xs.reshape((n, c) + tuple(xs.shape[1:]))
+    inp = _to_wire(chunks[torch.tensor(_inverse(order),
+                                       device=chunks.device)]
+                   .reshape(xs.shape).contiguous(), "cuda")
+    out = torch.empty((c,) + tuple(xs.shape[1:]), dtype=inp.dtype,
+                      device=inp.device)
+    STATS["psum_scatter"] += 1
+    STATS["wire_bytes"] += inp.numel() * inp.element_size()
+    dist.reduce_scatter_tensor(out, inp, op=dist.ReduceOp.SUM, group=group)
+    out = out.movedim(0, dim).to(x.dtype).contiguous()
+    STATS["seconds"] += time.perf_counter() - t0
+    return out
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return _reduce(x, axes, mesh, dist.ReduceOp.SUM, "psum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce(g, ctx.axes, ctx.mesh, dist.ReduceOp.SUM, "psum"),
+                None, None)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, axis):
+        ctx.axes, ctx.mesh, ctx.axis = axes, mesh, axis
+        return _all_gather(x, axes, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_psum_scatter(g, ctx.axes, ctx.mesh, ctx.axis), None, None,
+                None)
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        return _psum_scatter(x, axes, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_gather(g, ctx.axes, ctx.mesh, ctx.dim), None, None,
+                None)
+
+
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def psum(x: torch.Tensor, axes: Axes, mesh) -> torch.Tensor:
+    """The sum over ``axes``; its backward is a psum of the cotangent."""
+    axes = _axes(axes)
+    if axis_size(axes, mesh) == 1:
+        return x
+    if _grad(x):
+        return _PSum.apply(x, axes, mesh)
     return _reduce(x, axes, mesh, dist.ReduceOp.SUM, "psum")
 
 
 def pmax(x: torch.Tensor, axes: Axes, mesh) -> torch.Tensor:
-    return _reduce(x, axes, mesh, dist.ReduceOp.MAX, "pmax")
+    """The max over ``axes``, with no gradient (the log-sum-exp's shift,
+    decode's running max and the int8 scale use it)."""
+    return _reduce(x.detach(), axes, mesh, dist.ReduceOp.MAX, "pmax")
 
 
 def pmean(x: torch.Tensor, axes: Axes, mesh) -> torch.Tensor:
@@ -162,24 +301,18 @@ def pmean(x: torch.Tensor, axes: Axes, mesh) -> torch.Tensor:
 def all_gather(x: torch.Tensor, axes: Axes, mesh, axis: int = 0,
                tiled: bool = True) -> torch.Tensor:
     """Every rank's ``x`` along ``axis`` in flattened-index order:
-    concatenated (``tiled``) or stacked on a new ``axis``."""
+    concatenated (``tiled``) or stacked on a new ``axis``.  Its backward
+    is `psum_scatter` over the same axes and dim."""
     axes = _axes(axes)
-    n = axis_size(axes, mesh)
-    if n == 1:
-        return x if tiled else x.unsqueeze(axis)
-    t0 = time.perf_counter()
-    group, order = _group(mesh, axes)
-    w = _as_words(_to_wire(x, _wire(group)))
-    parts = [torch.empty_like(w) for _ in range(n)]
-    STATS["all_gather"] += 1
-    STATS["wire_bytes"] += w.numel() * w.element_size()
-    dist.all_gather(parts, w, group=group)
-    parts = [parts[order[i]].view(x.dtype) if x.dtype != w.dtype
-             else parts[order[i]] for i in range(n)]
-    out = torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
-    out = _from_wire(out, x.device)
-    STATS["seconds"] += time.perf_counter() - t0
-    return out
+    if not tiled:
+        axis = axis % (x.dim() + 1)
+        return all_gather(x.unsqueeze(axis), axes, mesh, axis)
+    axis = axis % x.dim()
+    if axis_size(axes, mesh) == 1:
+        return x
+    if _grad(x):
+        return _AllGather.apply(x, axes, mesh, axis)
+    return _all_gather(x, axes, mesh, axis)
 
 
 def local_chunk(x: torch.Tensor, axes: Axes, mesh, axis: int
@@ -200,32 +333,56 @@ def psum_scatter(x: torch.Tensor, axes: Axes, mesh,
                  scatter_dimension: int = 0, tiled: bool = True
                  ) -> torch.Tensor:
     """The sum over ``axes``, this rank keeping its block of
-    ``scatter_dimension`` (tiled)."""
+    ``scatter_dimension`` (tiled).  Its backward is `all_gather` over the
+    same axes and dim."""
     if not tiled:
         raise ValueError("psum_scatter is tiled only")
-    return local_chunk(psum(x, axes, mesh), axes, mesh,
-                       scatter_dimension).contiguous()
+    axes = _axes(axes)
+    dim = scatter_dimension % x.dim()
+    if axis_size(axes, mesh) == 1:
+        return x
+    if _grad(x):
+        return _PSumScatter.apply(x, axes, mesh, dim)
+    return _psum_scatter(x, axes, mesh, dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, split_axis, concat_axis):
+        ctx.args = (axes, mesh, concat_axis, split_axis)
+        return _all_to_all(x, axes, mesh, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_to_all(g, *ctx.args), None, None, None, None)
 
 
 def all_to_all(x: torch.Tensor, axes: Axes, mesh, split_axis: int,
                concat_axis: int, tiled: bool = True) -> torch.Tensor:
     """Split ``x`` along ``split_axis`` into one block per rank of
     ``axes`` (block i to flattened index i) and concatenate the blocks
-    received along ``concat_axis`` in flattened order (tiled)."""
+    received along ``concat_axis`` in flattened order (tiled).  Its
+    backward is the all-to-all with the two dims swapped."""
     if not tiled:
         raise ValueError("all_to_all is tiled only")
     axes = _axes(axes)
-    n = axis_size(axes, mesh)
-    if n == 1:
+    split_axis, concat_axis = split_axis % x.dim(), concat_axis % x.dim()
+    if axis_size(axes, mesh) == 1:
         return x
+    if _grad(x):
+        return _AllToAll.apply(x, axes, mesh, split_axis, concat_axis)
+    return _all_to_all(x, axes, mesh, split_axis, concat_axis)
+
+
+def _all_to_all(x: torch.Tensor, axes: Tuple[str, ...], mesh,
+                split_axis: int, concat_axis: int) -> torch.Tensor:
+    n = axis_size(axes, mesh)
     if x.shape[split_axis] % n:
         raise ValueError(f"dim {split_axis} of {tuple(x.shape)} does not "
                          f"split over {axes} ({n})")
     t0 = time.perf_counter()
     group, order = _group(mesh, axes)
-    inv = [0] * n
-    for f, g in enumerate(order):
-        inv[g] = f
+    inv = _inverse(order)
     xs = _to_wire(x, _wire(group)).movedim(split_axis, 0)
     c = xs.shape[0] // n
     chunks = xs.reshape((n, c) + tuple(xs.shape[1:]))

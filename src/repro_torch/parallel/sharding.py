@@ -18,13 +18,15 @@ is anything with named axis sizes: a `DeviceMesh` with
 The reference leaves the partitioning to GSPMD.  The port computes SPMD
 on local shards, explicitly: each rank holds the local shard of each
 leaf that its spec names (`local_shard`), each block computes on its
-local heads, columns or experts, and `shard_act` becomes a relayout
-between two layouts that the rules name (`parallel.collectives.relayout`:
-an all-gather where a dim turns replicated, a slice where it turns
-sharded, an all-to-all where a mesh axis moves between dims, nothing
-where the layouts agree).  `sharding_ctx` installs the mesh and rules
-for the blocks, with the global sizes that a local shard cannot tell
-them (the batch, the cache length).
+local heads, columns or experts, and the reference's `shard_act`
+becomes a relayout between two layouts that the rules name
+(`act_spec`; `parallel.collectives.relayout`: an all-gather where a dim
+turns replicated, a slice where it turns sharded, an all-to-all where a
+mesh axis moves between dims, nothing where the layouts agree;
+`models.layers.block_input` / `to_residual` for the residual stream).
+`sharding_ctx` installs the mesh and rules for the blocks, with the
+global sizes that a local shard cannot tell them (the batch, the
+sequence, the cache length).
 """
 from __future__ import annotations
 
@@ -283,8 +285,8 @@ _CURRENT: dict = {"mesh": None, "rules": DEFAULT_RULES, "dims": {}}
 
 class sharding_ctx:
     """Context manager installing (mesh, rules) for the blocks, and the
-    global sizes (``batch``, ``cache_len``) that their local shards do not
-    show."""
+    global sizes (``batch``, ``seq``, ``cache_len``) that their local
+    shards do not show."""
 
     def __init__(self, mesh, rules: ShardingRules, **dims: int):
         self.new = {"mesh": mesh, "rules": rules, "dims": dims}
@@ -308,7 +310,7 @@ def current_rules() -> ShardingRules:
 
 
 def current_dim(name: str, default: Optional[int] = None) -> int:
-    """A global size installed by `sharding_ctx` (``batch``,
+    """A global size installed by `sharding_ctx` (``batch``, ``seq``,
     ``cache_len``); ``default`` outside a mesh, where local sizes are
     global."""
     if _CURRENT["mesh"] is None and default is not None:
@@ -326,17 +328,6 @@ def act_spec(shape: Sequence[int], *logical: Optional[str]) -> Spec:
     if mesh is None:
         return (None,) * len(shape)
     return logical_to_mesh_axes(mesh, shape, logical, current_rules())
-
-
-def shard_act(x, *logical: Optional[str], shape: Sequence[int], src: Spec):
-    """Relayout a local shard ``x`` (global ``shape``, layout ``src``) to
-    the layout the rules give ``logical``; the identity outside a mesh
-    and where the layouts agree."""
-    mesh = current_mesh()
-    if mesh is None:
-        return x
-    from repro_torch.parallel.collectives import relayout
-    return relayout(x, src, act_spec(shape, *logical), mesh)
 
 
 # --------------------------------------------------------------------------- #

@@ -16,8 +16,14 @@ With a mesh (a `DeviceMesh` with ``mesh_dim_names``; rules
 its blocks from `models.model.init_caches(..., mesh=)`, ``batch`` the
 whole batch on every rank (each rank takes its rows); the greedy token
 is combined across the vocab shards and gathered over the batch axes,
-so every rank returns the whole batch's.  The train step takes no mesh
-yet.
+so every rank returns the whole batch's.  The serve steps also run
+under `DEFAULT_RULES` (the residual's sequence split over ``model``).
+
+The train step with a mesh (rules `DEFAULT_RULES` by default) runs SPMD
+too: the state is this rank's blocks, the loss the global batch's, and
+each leaf's gradient the psum of the ranks' partial gradients over the
+axes the leaf is replicated on (`loss_and_grads`; `parallel.collectives`
+says why the partials sum to the gradient).
 """
 from __future__ import annotations
 
@@ -34,11 +40,6 @@ from repro_torch.parallel import sharding as shlib
 from repro_torch.parallel.sharding import (ParamSpec, ShardingRules,
                                            _set_path, init_params,
                                            tree_leaves_with_path)
-
-MESH_TRAIN = ("the sharded train step (FSDP gradients, the seq_act "
-              "reduce-scatter, the int8 all-to-all's backward) comes with "
-              "the next mesh slice (ROADMAP queue 1, item 5); train with "
-              "mesh=None")
 
 
 def train_state_specs(cfg: ModelConfig, opt: Optional[AdamWConfig] = None
@@ -61,12 +62,24 @@ def init_train_state(seed: int, cfg: ModelConfig, device="cuda") -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict
-                   ) -> Tuple[dict, dict]:
-    """(metrics {"loss", "nll", "aux"}, grads): the gradient of
-    `models.model.loss_fn` with respect to every floating-point leaf of
-    ``params``.  The f32 masters of rank >= 2 are cast to the compute
-    dtype inside autograd, so their grads land in f32 on the masters."""
+def _leaf_axes(cfg: ModelConfig, mesh, rules: ShardingRules
+               ) -> Dict[str, Tuple[str, ...]]:
+    """path -> the mesh axes each parameter leaf's block is cut over
+    (`param_sharding`)."""
+    return {path: tuple(a for e in shlib.param_sharding(mesh, s, rules)
+                        for a in shlib.entry_axes(e))
+            for path, s in tree_leaves_with_path(M.model_param_specs(cfg))}
+
+
+def _partial_grads(cfg: ModelConfig, params: dict, batch: dict
+                   ) -> Tuple[dict, Dict[str, torch.Tensor]]:
+    """(metrics, {path: grad}) of `models.model.loss_fn`, on one device;
+    under a mesh (an installed `sharding_ctx`) this rank's partial
+    gradients, whose sum over the ranks that hold a leaf alike is the
+    world size times the loss's gradient (`parallel.collectives`).  The
+    f32 masters of rank >= 2 are cast to the compute dtype inside
+    autograd, before any FSDP gather, so the gathers move the compute
+    dtype and the grads land in f32 on the masters."""
     flat = [(path, p.detach().requires_grad_(p.is_floating_point()))
             for path, p in tree_leaves_with_path(params)]
     half: dict = {}
@@ -79,10 +92,68 @@ def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict
         wrt = [(path, p) for path, p in flat if p.requires_grad]
         gs = torch.autograd.grad(loss, [p for _, p in wrt],
                                  allow_unused=True)
-    grads: dict = {}
-    for (path, p), g in zip(wrt, gs):
-        _set_path(grads, path, torch.zeros_like(p) if g is None else g)
+    grads = {path: torch.zeros_like(p) if g is None else g
+             for (path, p), g in zip(wrt, gs)}
     return {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def _tree(flat: Dict[str, torch.Tensor]) -> dict:
+    out: dict = {}
+    for path, t in flat.items():
+        _set_path(out, path, t)
+    return out
+
+
+def _reduce_grads(grads: Dict[str, torch.Tensor], mesh,
+                  leaf_axes: Dict[str, Tuple[str, ...]]
+                  ) -> Dict[str, torch.Tensor]:
+    """Partial gradients -> each leaf block's gradient: the psum over the
+    mesh axes its leaf is not cut over (one psum of the concatenated
+    leaves for each set of axes and dtype), over the world size."""
+    from repro_torch.parallel import collectives as C
+    names = tuple(mesh.mesh_dim_names)
+    world = C.axis_size(names, mesh)
+    buckets: Dict[tuple, List[str]] = {}
+    for path, g in grads.items():
+        rep = tuple(a for a in names if a not in leaf_axes[path])
+        buckets.setdefault((rep, g.dtype), []).append(path)
+    out = {}
+    for (rep, _), paths in buckets.items():
+        if rep:
+            flat = C.psum(torch.cat([grads[p].reshape(-1) for p in paths]),
+                          rep, mesh)
+            parts = torch.split(flat, [grads[p].numel() for p in paths])
+        else:
+            parts = [grads[p] for p in paths]
+        for p, g in zip(paths, parts):
+            out[p] = g.view(grads[p].shape) / world
+    return out
+
+
+def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict, mesh=None,
+                   rules: Optional[ShardingRules] = None
+                   ) -> Tuple[dict, dict]:
+    """(metrics {"loss", "nll", "aux"}, grads): the gradient of
+    `models.model.loss_fn` with respect to every floating-point leaf of
+    ``params``.  With a mesh ``params`` are this rank's blocks
+    (`models.convert.shard_params`), ``batch`` the whole batch (each
+    rank takes its rows), the loss the global batch's and the grads this
+    rank's blocks of the global gradient."""
+    rules = rules or shlib.DEFAULT_RULES
+    metrics, grads = _grads_on(cfg, params, batch, mesh, rules)
+    if mesh is not None:
+        grads = _reduce_grads(grads, mesh, _leaf_axes(cfg, mesh, rules))
+    return metrics, _tree(grads)
+
+
+def _grads_on(cfg: ModelConfig, params: dict, batch: dict, mesh, rules):
+    """`_partial_grads` of ``batch`` on one device, or of this rank's rows
+    of it under ``mesh``'s `sharding_ctx`."""
+    if mesh is None:
+        return _partial_grads(cfg, params, batch)
+    B, S = batch_size(batch), _seq_len(batch)
+    with shlib.sharding_ctx(mesh, rules, batch=B, seq=S):
+        return _partial_grads(cfg, params, local_batch(batch, B, mesh, rules))
 
 
 def _micro_batches(batch: dict, n: int) -> List[dict]:
@@ -103,47 +174,55 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
                     rules: Optional[ShardingRules] = None, compress=None):
     """compress: optional optim.compression.CompressionConfig — applied to
     gradients (with persistent error-feedback state in the train state)
-    before the optimizer, modelling the cross-pod DCN reduction leg.  A
-    mesh raises (`MESH_TRAIN`)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_TRAIN)
+    before the optimizer, modelling the cross-pod DCN reduction leg.
+
+    With a mesh (rules `DEFAULT_RULES` by default: FSDP over ``data``, TP
+    and the sequence-split residual over ``model``) the step runs SPMD on
+    this rank: ``state`` holds its blocks of the params, moments and
+    error feedback, ``batch`` is the whole batch on every rank, the loss
+    is the global batch's, each micro-step takes its rows of the global
+    micro-batch, and the gradient norm and the int8 scale are the whole
+    leaves'."""
+    rules = rules or shlib.DEFAULT_RULES
+    leaf_axes = _leaf_axes(cfg, mesh, rules) if mesh is not None else None
 
     def train_step(state, batch):
         n_micro = max(cfg.micro_steps, 1)
         if n_micro == 1:
-            metrics, grads = loss_and_grads(cfg, state["params"], batch)
+            metrics, grads = _grads_on(cfg, state["params"], batch, mesh,
+                                       rules)
         else:
             # gradient accumulation over micro-batches, in f32
             grads = None
             nll = aux = 0.0
             for mb in _micro_batches(batch, n_micro):
-                met, g = loss_and_grads(cfg, state["params"], mb)
+                met, g = _grads_on(cfg, state["params"], mb, mesh, rules)
                 if grads is None:
-                    grads = {p: x.float() for p, x in
-                             tree_leaves_with_path(g)}
+                    grads = {p: x.float() for p, x in g.items()}
                 else:
-                    for p, x in tree_leaves_with_path(g):
+                    for p, x in g.items():
                         grads[p] = grads[p] + x.float()
                 nll = nll + met["nll"]
                 aux = aux + met["aux"]
-            tree: dict = {}
-            for p, x in grads.items():
-                _set_path(tree, p, x / n_micro)
-            grads = tree
+            grads = {p: x / n_micro for p, x in grads.items()}
             nll, aux = nll / n_micro, aux / n_micro
             metrics = {"loss": nll + cfg.router_aux_coef * aux, "nll": nll,
                        "aux": aux}
+        if mesh is not None:
+            grads = _reduce_grads(grads, mesh, leaf_axes)
+        grads = _tree(grads)
         err_state = None
         if compress is not None and compress.scheme != "none":
             from repro_torch.optim.compression import compress_tree
             grads, err_state = compress_tree(grads, state.get("err"),
-                                             compress)
+                                             compress, mesh=mesh,
+                                             leaf_axes=leaf_axes)
         # a named range, so that a profile of the step can tell the
         # optimizer's kernels from the backward's
         with torch.profiler.record_function("adamw_update"):
             new_params, new_opt, stats = adamw_update(
                 opt_cfg, state["params"], grads, state["opt"],
-                state["step"])
+                state["step"], mesh=mesh, leaf_axes=leaf_axes)
         metrics.update(stats)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
@@ -169,6 +248,11 @@ def batch_size(batch: dict) -> int:
     return batch["embeds"].shape[0]
 
 
+def _seq_len(batch: dict) -> int:
+    return (batch["tokens"] if "tokens" in batch else batch["embeds"]
+            ).shape[1]
+
+
 def _serve_step(cfg: ModelConfig, fn, mesh, rules, return_logits: bool):
     """A serve step of ``fn`` (`M.prefill` or `M.decode_step`): the
     greedy token of its last logits (and the logits, whole on every rank,
@@ -183,11 +267,6 @@ def _serve_step(cfg: ModelConfig, fn, mesh, rules, return_logits: bool):
             return next_tok, new_caches
         return step
     rules = rules or shlib.infer_rules(cfg)
-    if rules.mesh_axes("seq_act"):
-        raise NotImplementedError(
-            "a sequence-parallel residual (seq_act) comes with the sharded "
-            "train step (ROADMAP queue 1, item 5); serve under "
-            "infer_rules(cfg)")
 
     @torch.no_grad()
     def mesh_step(params, batch, caches):
@@ -197,7 +276,8 @@ def _serve_step(cfg: ModelConfig, fn, mesh, rules, return_logits: bool):
         if batch_size(batch) != B:
             raise ValueError(f"a batch of {batch_size(batch)} rows for "
                              f"caches cut for {B}")
-        with shlib.sharding_ctx(mesh, rules, batch=B, cache_len=cache_len):
+        with shlib.sharding_ctx(mesh, rules, batch=B, cache_len=cache_len,
+                                seq=_seq_len(batch)):
             last_logits, new_caches = fn(cfg, params,
                                          local_batch(batch, B, mesh, rules),
                                          caches)

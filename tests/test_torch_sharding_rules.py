@@ -133,15 +133,20 @@ def test_local_shapes_and_abstract_specs():
 
 
 def test_train_step_and_int8_backward_refuse_a_mesh_until_their_slice():
-    """The sharded train step and the int8 all-to-all's backward come
-    with the next mesh slice: both raise, naming it."""
+    """Their slice has landed: the train step takes a mesh (its leaves'
+    block axes from `param_sharding`), and the int8 all-to-all passes
+    its gradient straight through (a model axis of one rank: no
+    process group)."""
     from repro_torch.configs.base import reduced_config
     from repro_torch.models.moe import a2a_int8
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.training.train_state import make_train_step
+    from repro_torch.training.train_state import _leaf_axes, make_train_step
     cfg = reduced_config(get_config("zamba2-7b"))
-    with pytest.raises(NotImplementedError, match="next mesh slice"):
-        make_train_step(cfg, AdamWConfig(), mesh={"data": 2, "model": 2})
+    mesh = {"data": 2, "model": 2}
+    assert callable(make_train_step(cfg, AdamWConfig(), mesh=mesh))
+    axes = _leaf_axes(cfg, mesh, S.DEFAULT_RULES)
+    assert axes["decoder.g0.L0.ssd.wz"] == ("data", "model")
+    assert axes["embed.embedding"] == ("model",)
     x = torch.ones((4, 2, 8), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="sharded train step"):
-        a2a_int8(x, "model", {"model": 2}, 0, 1)
+    a2a_int8(x * 3.0, "model", {"model": 1}, 0, 1).sum().backward()
+    assert torch.equal(x.grad, torch.full_like(x, 3.0))
