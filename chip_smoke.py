@@ -764,36 +764,18 @@ def end_to_end_phase(torch, sk, scenarios, names=CHIP_RUNS, device="cuda"):
 
 
 # ====================== serve slice: kernel phase ======================= #
-def live_pairs(Sq, Skv, causal, window):
-    """(query, key) pairs alive under the mask: the work attention needs."""
-    n = 0
-    for qpos in range(Sq):
-        hi = min(Skv - 1, qpos) if causal else Skv - 1
-        lo = max(0, qpos - window + 1) if window else 0
-        n += max(0, hi - lo + 1)
-    return n
-
-
-def ssd_ops(B, S, H, P, N, chunk):
-    """FLOP of the chunked scan over the real steps: per chunk of Lc steps
-    the causal half of C B^T and of its product with x dt, Lc(Lc+1)(N+P),
-    plus the state's read and update, 4 Lc N P."""
-    L = min(chunk, S)
-    ops = 0
-    for t0 in range(0, S, L):
-        lc = min(L, S - t0)
-        ops += lc * (lc + 1) * (N + P) + 4 * lc * N * P
-    return ops * B * H
-
-
 def model_kernel_phase(torch):
     """`flash_fwd` and `ssd_scan` against their plain versions on CUDA
     tensors: the reference's kernel-test cases, then the serve path's
-    shapes (timed; the last record of each kernel is the reported one)."""
+    shapes (timed; the last record of each kernel is the reported one).
+    Their bounds count the work the package's FLOP formulas count
+    (`live_pairs`, `ssd_ops`: what a meta trace of a step counts)."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.kernel import live_pairs
     from repro_torch.kernels.ssd import kernel as ssk
+    from repro_torch.kernels.ssd.kernel import ssd_ops
     rs = np.random.default_rng(2024)
     records = {}
 
@@ -1316,10 +1298,13 @@ def full_model_phase(torch, params, cfg, prompts, device="cuda",
     reset_model_launches()
     caches = fresh_caches(cfg16)
     sync(torch, device)
+    base = torch.cuda.memory_allocated() if on_card else 0
     t0 = time.perf_counter()
     tok, caches = prefill_step(params16, {"tokens": prompts}, caches)
     sync(torch, device)
     prefill_s = time.perf_counter() - t0
+    record_step(torch, "full", cfg16, prefill_s,
+                (params16, {"tokens": prompts}, caches), base, device)
     per_prefill = model_launches()
     # bf16: every launch on the tensor-core kernels
     want = route_counts(n_attn, n_ssd, n_attn, n_ssd) if on_card \
@@ -1823,8 +1808,10 @@ def train_step_phase(torch, cfg=None, device="cuda", B=2, S=2048, seed=17,
     step = make_train_step(c16, AdamWConfig())
     state, met = step(state, batch)                 # warm-up
     sync(torch, device)
+    base = 0
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     reset_model_launches()
     times, losses = [], [float(met["loss"])]
     for _ in range(n_steps):
@@ -1834,6 +1821,8 @@ def train_step_phase(torch, cfg=None, device="cuda", B=2, S=2048, seed=17,
         sync(torch, device)
         times.append(time.perf_counter() - t0)
         losses.append(float(met["loss"]))
+    record_step(torch, "train", c16, statistics.median(times),
+                (state, batch), base, device)
     launches = model_launches()
     want = (route_counts(2 * n_attn * n_steps, 2 * n_ssd * n_steps,
                          2 * n_attn * n_steps, 2 * n_ssd * n_steps)
@@ -2600,10 +2589,13 @@ def serve_run(torch, cfg, params, batch, n_decode, src_len, want_flash,
     reset_model_launches()
     caches = fresh_caches()
     sync(torch, device)
+    base = torch.cuda.memory_allocated() if on_card else 0
     t0 = time.perf_counter()
     tok, caches = prefill_step(params, batch, caches)
     sync(torch, device)
     prefill_s = time.perf_counter() - t0
+    record_step(torch, what, cfg, prefill_s, (params, batch, caches), base,
+                device)
     per_prefill = model_launches()
     want = (route_counts(want_flash, 0, want_flash, 0) if on_card
             else route_counts(0, 0, 0, 0))
@@ -2893,10 +2885,11 @@ def mesh_rank(rank, world, init_file, backend, device, job, results):
 
 
 def _mesh_serve(torch, cfg, params, mesh, prompts, n_decode, device,
-                what):
-    """Prefill ``prompts`` (B, S) and greedy-decode ``n_decode`` steps
-    through the mesh serve steps: (tokens (n+1, B), logits (n+1, B, V)
-    f32, prefill s, decode ms/step, the kernels' launches)."""
+                what, frames=None):
+    """Prefill ``prompts`` (B, S) (and an encoder-decoder's source
+    ``frames`` (B, S_src, d)) and greedy-decode ``n_decode`` steps through
+    the mesh serve steps: (tokens (n+1, B), logits (n+1, B, V) f32,
+    prefill s, decode ms/step, the kernels' launches)."""
     from repro_torch.models import model as M
     from repro_torch.parallel import collectives as C
     from repro_torch.parallel.sharding import infer_rules
@@ -2906,13 +2899,17 @@ def _mesh_serve(torch, cfg, params, mesh, prompts, n_decode, device,
     B, S = prompts.shape
     pre = make_prefill_step(cfg, mesh, rules, return_logits=True)
     dec = make_decode_step(cfg, mesh, rules, return_logits=True)
-    caches = M.init_caches(cfg, B, S + n_decode, mesh=mesh, rules=rules,
-                           device=device)
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["enc_embeds"] = frames
+    caches = M.init_caches(cfg, B, S + n_decode,
+                           0 if frames is None else frames.shape[1],
+                           mesh=mesh, rules=rules, device=device)
     C.reset_stats()
     reset_model_launches()
     sync(torch, device)
     t0 = time.perf_counter()
-    tok, caches, lg = pre(params, {"tokens": prompts}, caches)
+    tok, caches, lg = pre(params, batch, caches)
     sync(torch, device)
     prefill_s = time.perf_counter() - t0
     toks, logits = [tok], [lg.float()]
@@ -2986,6 +2983,67 @@ def _mesh_layerwise(torch, cfg, full, local, mesh, prompts):
                     out.append(float((y2.float() - y1.float()).abs().max()
                                      / y1.float().abs().max()))
                     x = y1
+    return out
+
+
+def _mesh_encdec_layerwise(torch, cfg, full, local, mesh, prompts, frames):
+    """`_mesh_layerwise` for an encoder-decoder: each encoder layer on the
+    single-device run's input to it, then each decoder layer (prefill,
+    its cross k/v from the single-device encoder's output), through the
+    single-device layer and its mesh blocks on this rank's rows."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as shlib
+    from repro_torch.parallel.collectives import all_gather, local_chunk
+    rules = shlib.infer_rules(cfg)
+    B, S = prompts.shape
+    S_src = frames.shape[1]
+    axes = shlib.entry_axes(shlib.logical_to_mesh_axes(mesh, (B,),
+                                                       ("batch",), rules)[0])
+    rows = lambda t: local_chunk(t, axes, mesh, 0)  # noqa: E731
+    aux = torch.zeros((), device=prompts.device)
+    out = []
+
+    def layers(groups, tree):
+        for gi, g in enumerate(groups):
+            for r in range(g.repeat):
+                pf = M._index_tree(full[tree][f"g{gi}"], r)
+                pl = M._index_tree(local[tree][f"g{gi}"], r)
+                for i, ls in enumerate(g.layers):
+                    yield ls, pf[f"L{i}"], pl[f"L{i}"]
+    with torch.no_grad():
+        x = frames
+        pos = torch.broadcast_to(torch.arange(S_src, device=x.device),
+                                 (B, S_src))
+        for ls, pf, pl in layers(cfg.encoder_groups, "encoder"):
+            y1, _, _ = M.apply_layer(cfg, ls, pf, x, aux, mode="train",
+                                     positions=pos, causal=False)
+            with shlib.sharding_ctx(mesh, rules, batch=B, seq=S_src):
+                y2, _, _ = M.apply_layer(cfg, ls, pl, rows(x), aux,
+                                         mode="train", positions=rows(pos),
+                                         causal=False)
+                y2 = all_gather(y2, axes, mesh)
+            out.append(float((y2.float() - y1.float()).abs().max()
+                             / y1.float().abs().max()))
+            x = y1
+        enc = L.rms_norm(x, full["encoder"]["enc_norm"], cfg.norm_eps)
+        x = L.embed_tokens(full["embed"], prompts, cfg)
+        pos = torch.broadcast_to(torch.arange(S, device=x.device), (B, S))
+        for ls, pf, pl in layers(cfg.groups, "decoder"):
+            y1, _, _ = M.apply_layer(
+                cfg, ls, pf, x, aux, mode="prefill", positions=pos,
+                enc_kv=A.encode_cross_kv(pf["cross"], enc, cfg))
+            with shlib.sharding_ctx(mesh, rules, batch=B, seq=S,
+                                    cache_len=S):
+                y2, _, _ = M.apply_layer(
+                    cfg, ls, pl, rows(x), aux, mode="prefill",
+                    positions=rows(pos),
+                    enc_kv=A.encode_cross_kv(pl["cross"], rows(enc), cfg))
+                y2 = all_gather(y2, axes, mesh)
+            out.append(float((y2.float() - y1.float()).abs().max()
+                             / y1.float().abs().max()))
+            x = y1
     return out
 
 
@@ -3232,6 +3290,69 @@ def _mesh_rank(rank, world, init_file, backend, device, job):
                                      "differs from the file's")
             got["drops"] = [c[3] for c in routing]
             del params
+
+        # ---- seamless-m4t-medium whole, bf16, on (2, 2) ----------------- #
+        e = job.get("encdec")
+        if e:
+            cfg = e["cfg"]
+            mesh = meshes[e["mesh"]]
+            full = condition_attention(init_params(
+                e["seed"], M.model_param_specs(cfg), dtype=torch.bfloat16,
+                device=device))
+            params = shard_params(full, M.model_param_specs(cfg), mesh,
+                                  infer_rules(cfg), device=device)
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            g = torch.Generator().manual_seed(e["seed"])
+            prompts = torch.randint(0, cfg.vocab_size, (e["B"], e["S"]),
+                                    generator=g, dtype=torch.int32).to(device)
+            frames = torch.randn((e["B"], e["S_src"], cfg.d_model),
+                                 generator=g).to(device, torch.bfloat16)
+            got = keep(_mesh_serve(torch, cfg, params, mesh, prompts,
+                                   e["n_decode"], device, "encdec_bf16",
+                                   frames))
+            got["finite"] = bool(torch.isfinite(got["logits"]).all())
+            got["layers"] = _mesh_encdec_layerwise(torch, cfg, full, params,
+                                                   mesh, prompts, frames)
+            del params, full
+            if on_card:
+                torch.cuda.empty_cache()
+
+        # ---- seamless f32 of reference_serve_encdec.json on (2, 2) ------ #
+        er = job.get("encdec_ref")
+        if er:
+            from repro_torch.models.convert import params_from_reference
+            ref, cfg = er["ref"], er["cfg"]
+            mesh = meshes[tuple(er["mesh"])]
+            specs = M.model_param_specs(cfg)
+            full = params_from_reference(init_params_numpy(ref["seed"],
+                                                           specs),
+                                         specs, device=device)
+            if ref.get("attention_scaled"):
+                condition_attention(full)
+            params = shard_params(full, specs, mesh, infer_rules(cfg),
+                                  device=device)
+            del full
+            if on_card:
+                torch.cuda.empty_cache()
+            rng = np.random.default_rng(ref["seed"])
+            prompt = rng.integers(0, cfg.vocab_size,
+                                  (1, len(ref["prompt"])))
+            rng.choice(cfg.vocab_size, len(ref["logit_index"]),
+                       replace=False)
+            frames = rng.standard_normal((1, ref["src_len"], cfg.d_model),
+                                         dtype=np.float32)
+            if prompt[0].tolist() != ref["prompt"]:
+                raise AssertionError("encdec_ref: the prompt drawn here "
+                                     "differs from the file's")
+            got = keep(_mesh_serve(
+                torch, cfg, params, mesh,
+                torch.tensor(prompt, dtype=torch.int32, device=device),
+                ref["decode_steps"], device, "encdec_ref",
+                torch.from_numpy(frames).to(device)))
+            got["worst"] = _file_check(torch, ref, got, "encdec_ref")
+            del params
         for got in out["runs"].values():
             got["tokens"] = got["tokens"].tolist()
             got.pop("logits")
@@ -3288,11 +3409,12 @@ def spawn_mesh_ranks(world, root, backend, device, job, limit,
     return [got[r] for r in range(world)]
 
 
-def mesh_jobs(zamba2=None, moe=None, serve_ref=True, moe_ref=True):
+def mesh_jobs(zamba2=None, moe=None, serve_ref=True, moe_ref=True,
+              encdec=None, encdec_ref=True):
     """The mesh phase's job for 4 ranks sharing one card: the configs of
-    each run (``zamba2`` / ``moe`` replace the full-width ones, for a
-    rehearsal on the CPU; ``serve_ref`` / ``moe_ref`` take the reference
-    files' full-width f32 models)."""
+    each run (``zamba2`` / ``moe`` / ``encdec`` replace the full-width
+    ones, for a rehearsal on the CPU; ``serve_ref`` / ``moe_ref`` /
+    ``encdec_ref`` take the reference files' full-width f32 models)."""
     from repro_torch.configs.base import GroupSpec, LayerSpec, get_config
     job = {"meshes": [(2, 2), (1, 4)], "kernels": True}
     job["zamba2"] = {"cfg": zamba2 or get_config("zamba2-7b").replace(
@@ -3314,6 +3436,14 @@ def mesh_jobs(zamba2=None, moe=None, serve_ref=True, moe_ref=True):
     if moe_ref:
         ref = json.loads(MESH_FILE.read_text())
         job["moe_ref"] = {"ref": ref, "cfg": serve_reference_config(ref)}
+    job["encdec"] = {"cfg": encdec or get_config(
+        "seamless-m4t-medium").replace(dtype="bfloat16", use_pallas=True),
+        "seed": 20, "mesh": (2, 2), "B": 4, "S_src": 2048, "S": 512,
+        "n_decode": 4}
+    if encdec_ref:
+        ref = json.loads(ENCDEC_FILE.read_text())
+        job["encdec_ref"] = {"ref": ref, "cfg": serve_reference_config(ref),
+                             "mesh": (2, 2)}
     return job
 
 
@@ -3396,7 +3526,27 @@ def mesh_serve_phase(torch, job=None, device="cuda", limit=600.0):
         # the whole model is held in f32 (the reference_serve.json runs
         # below); in bf16 a random stack amplifies one rounding
         # difference layer by layer, so its end to end is a reading
-    for name in ("serve_ref_2x2", "serve_ref_1x4", "moe_ref"):
+    c = runs.get("encdec_bf16")
+    if c:
+        n_enc = sum(g.repeat * len(g.layers)
+                    for g in job["encdec"]["cfg"].encoder_groups)
+        want = (route_counts(n_enc, 0, n_enc, 0) if device == "cuda"
+                else route_counts(0, 0, 0, 0))
+        worst = max(max(o["runs"]["encdec_bf16"]["layers"]) for o in outs)
+        log(f"[mesh] seamless bf16 (2, 2), B={job['encdec']['B']} "
+            f"{job['encdec']['S_src']} frames, {job['encdec']['S']} target "
+            f"tokens, {job['encdec']['n_decode']} decode steps: each layer "
+            f"on the same input within {worst:.3e} of the single-device "
+            f"layer's max (encoder, then decoder: "
+            f"{[round(v, 5) for v in c['layers']]}); launches "
+            f"{json.dumps(c['launches'])}")
+        if c["launches"] != want or not c["finite"]:
+            fail(f"mesh seamless launched {c['launches']} (expected {want}),"
+                 f" finite logits {c['finite']}")
+        if not worst <= 2e-2:
+            fail(f"a mesh seamless bf16 layer differs from one device by "
+                 f"{worst:.3e} of its max")
+    for name in ("serve_ref_2x2", "serve_ref_1x4", "moe_ref", "encdec_ref"):
         if name in runs:
             log(f"[mesh] {name} equals its reference file on every rank "
                 f"(worst {max(o['runs'][name]['worst'] for o in outs):.3e} "
@@ -3438,7 +3588,8 @@ def mesh_serve_phase(torch, job=None, device="cuda", limit=600.0):
         log(f"[mesh] the NCCL mesh did not run: {n_cards} card(s), and "
             "NCCL refuses two ranks on one card")
     return {"zamba2": (z or {}).get("launches", {}),
-            "moe": (q or {}).get("launches", {})}
+            "moe": (q or {}).get("launches", {}),
+            "encdec": (c or {}).get("launches", {})}
 
 
 COLLECTIVES = ("psum", "pmax", "all_gather", "all_to_all", "psum_scatter")
@@ -4012,8 +4163,10 @@ def moe_train_phase(torch, cfg, device="cuda", B=2, S=2048, seed=31,
     step = make_train_step(cfg, _mesh_opt())
     state, met = step(state, batch)                 # warm-up
     sync(torch, device)
+    base = 0
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     reset_model_launches()
     calls = []
 
@@ -4036,6 +4189,8 @@ def moe_train_phase(torch, cfg, device="cuda", B=2, S=2048, seed=31,
                 fwd = calls[:n_layers]
     finally:
         moe_lib._route = route
+    record_step(torch, "moe-train", cfg, statistics.median(times),
+                (state, batch), base, device)
     launches = model_launches()
     peak = _peak(torch, device)
     N = B * S
@@ -4195,7 +4350,184 @@ def mesh_train_phase(torch, job=None, device="cuda", limit=900.0):
     log(f"[mesh-train] wall {wall:.1f}s ({card_or_cpu(device)})")
     return {"mesh": b["launches"], "per_step": {
         k: v // job["n_steps"] for k, v in b["launches"].items()},
-        "moe": moe}
+        "moe": moe, "bf16_wire": [o["bf16"]["wire"] for o in outs],
+        "n_steps": job["n_steps"]}
+
+# ========== the launch toolchain: the timed steps on meta tensors ======== #
+# what each timed full-width step measured, by `roofline_plan` key: its
+# config, seconds, argument bytes and peak (`record_step`)
+ROOF_RUNS = {}
+TRACE_FILE = ROOT / "build" / "chip_roofline.json"
+
+
+def record_step(torch, key, cfg, seconds, args, base, device):
+    """What a timed step measured, for `roofline_phase`: its seconds, the
+    nbytes of its arguments (``args``, the tensors it was called on), and
+    its peak: the card's high-water mark over the step less what the card
+    held before it (``base``), plus the arguments."""
+    from torch.utils._pytree import tree_flatten
+    arg_bytes = sum(t.numel() * t.element_size()
+                    for t in tree_flatten(args)[0]
+                    if isinstance(t, torch.Tensor))
+    peak = (torch.cuda.max_memory_allocated() - base + arg_bytes
+            if device == "cuda" else 0)
+    ROOF_RUNS[key] = {"cfg": repr(cfg), "s": seconds,
+                      "arg_bytes": arg_bytes, "peak_bytes": peak}
+
+
+def roofline_plan():
+    """The full-width steps this script times, as the roofline phase
+    traces them: key -> (label, config, kind, B, S, the caches' length,
+    the train step's AdamW config).  Each config is built as the phase
+    that times it builds it, and `roofline_phase` holds the two equal."""
+    from repro_torch.configs.base import get_config
+    z, q = get_config("zamba2-7b"), get_config("qwen3-moe-30b-a3b")
+    bf16 = dict(dtype="bfloat16", use_pallas=True)
+    return {
+        "full": ("zamba2-7b bf16 prefill B=4 S=2048", z.replace(**bf16),
+                 "prefill", 4, 2048, 2048 + 32, None),
+        "train": ("zamba2-7b 13-layer bf16 train step B=2 S=2048",
+                  z.replace(groups=train_groups(), remat="full", **bf16),
+                  "train", 2, 2048, None, None),
+        "moe-train": ("qwen3-moe-30b-a3b 4-layer bf16 train step B=2 "
+                      "S=2048", mesh_train_jobs()["moe_single"], "train", 2,
+                      2048, None, _mesh_opt()),
+        "moe": ("qwen3-moe-30b-a3b 48-layer bf16 prefill B=4 S=2048",
+                q.replace(**bf16), "prefill", 4, 2048, 2048 + 32, None)}
+
+
+def trace_steps(out_path, plan=None, mesh_job=None):
+    """The `--trace-steps` child: each step of ``plan`` (`roofline_plan`)
+    traced on meta tensors on one device, then the (2, 2) mesh train step
+    of ``mesh_job``'s 13-layer bf16 zamba2 (`mesh_train_jobs`: its
+    ``"bf16"`` config, B and S) under a fake group of 4, on the gloo and
+    the NCCL routes; written to ``out_path`` as JSON.  Host work only: it
+    runs beside the card's phases."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import model_flops_of, roofline_terms
+    plan = plan or roofline_plan()
+    res = {"steps": {}, "mesh": {}}
+    for key, (label, cfg, kind, b, s, cache_len, opt) in plan.items():
+        t0 = time.perf_counter()
+        tr = dryrun.trace_cell(cfg, ShapeConfig(key, s, b, kind), None,
+                               cache_len=cache_len, opt=opt)
+        a = tr["analysis"]
+        res["steps"][key] = {
+            "label": label, "cfg": repr(cfg),
+            "model_flops": model_flops_of(cfg, b, s, kind),
+            "analysis": {k: a[k] for k in ("flops", "dot_flops",
+                                           "bytes_accessed", "n_ops")},
+            "terms": roofline_terms(a), "memory": tr["memory"],
+            "trace_s": time.perf_counter() - t0}
+        print(f"[trace] {label}: {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    job = mesh_job or mesh_train_jobs()
+    cfg = job["bf16"]
+    mesh = dryrun.make_mesh(shape=job["mesh"])
+    for route in ("gloo", "nccl"):
+        t0 = time.perf_counter()
+        tr = dryrun.trace_cell(cfg, ShapeConfig("mesh", job["S"], job["B"],
+                                                "train"), mesh, route,
+                               opt=_mesh_opt())
+        res["mesh"][route] = {
+            "cfg": repr(cfg), "stats": tr["analysis"]["stats"],
+            "terms": roofline_terms(tr["analysis"]),
+            "memory": tr["memory"], "trace_s": time.perf_counter() - t0}
+        print(f"[trace] mesh {route}: {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_path).write_text(json.dumps(res))
+
+
+def start_trace_steps():
+    """`trace_steps` in a child process (`--trace-steps`), beside the card's
+    phases; `finish_trace_steps` joins it."""
+    import atexit
+    out = ROOT / "build" / "chip_trace_steps.log"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    TRACE_FILE.unlink(missing_ok=True)
+    with open(out, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--trace-steps",
+             str(TRACE_FILE)], stdout=f, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, time.perf_counter()
+
+
+def finish_trace_steps(started, limit=600.0):
+    proc, out, _ = started
+    t_wait = time.perf_counter()
+    try:
+        proc.wait(timeout=limit)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"the meta traces outlasted {limit} s")
+    for line in out.read_text().splitlines():
+        log(line)
+    if proc.returncode != 0:
+        fail(f"the meta traces failed ({proc.returncode})")
+    traced = json.loads(TRACE_FILE.read_text())
+    spent = sum(t["trace_s"] for part in ("steps", "mesh")
+                for t in traced[part].values())
+    log(f"[time] meta traces {spent:.1f}s of tracing beside the card's "
+        f"phases; waited {time.perf_counter() - t_wait:.1f}s for them")
+    return traced
+
+
+def roofline_phase(traced, mesh_wire, n_steps, where=None, peak=989e12):
+    """For each step of `roofline_plan`: the model FLOP, the counted FLOP
+    and bytes of its meta trace, the three roofline terms on the H100
+    (`launch.roofline`), the step time the phase measured and the MFU
+    (model FLOP / (s x 989e12)); fails unless the trace's argument bytes
+    equal the nbytes of the tensors the step ran on.  Then the meta trace
+    of the (2, 2) mesh train step, gloo route, against what every rank
+    of `mesh_train_phase` measured in `collectives.STATS` a step (calls
+    by kind and wire bytes): fails unless equal.  ``where`` names what
+    ran the timed steps (the card's name and power limit)."""
+    where = where or card()
+    for key, tr in traced["steps"].items():
+        run = ROOF_RUNS.get(key)
+        if run is None:
+            fail(f"the roofline step {key} was not timed")
+        if run["cfg"] != tr["cfg"]:
+            fail(f"the roofline step {key} traced another config than the "
+                 f"one timed:\n{tr['cfg']}\n{run['cfg']}")
+        a, t, m = tr["analysis"], tr["terms"], tr["memory"]
+        mfu = tr["model_flops"] / (run["s"] * peak)
+        ratio = m["peak_bytes"] / run["peak_bytes"] if run["peak_bytes"] \
+            else float("nan")
+        log(f"[roofline] {tr['label']}: model FLOP {tr['model_flops']:.4e}; "
+            f"counted {a['flops']:.4e} FLOP ({a['dot_flops']:.4e} in "
+            f"products), {a['bytes_accessed']:.4e} bytes unfused, "
+            f"{a['n_ops']} ops; compute {t['compute_s']:.5f}s, memory "
+            f"{t['memory_s']:.5f}s, collective {t['collective_s']:.5f}s: "
+            f"{t['dominant']}-bound; measured {run['s']:.4f}s, MFU "
+            f"{mfu:.4f}; arguments {m['argument_bytes']} bytes traced, "
+            f"{run['arg_bytes']} on the card; peak {m['peak_bytes']} bytes "
+            f"traced, {run['peak_bytes']} measured (ratio {ratio:.3f}); "
+            f"traced in {tr['trace_s']:.1f}s ({where})")
+        if m["argument_bytes"] != run["arg_bytes"]:
+            fail(f"{key}: the trace's arguments ({m['argument_bytes']} bytes)"
+                 f" are not the step's ({run['arg_bytes']} bytes)")
+    keys = COLLECTIVES + ("wire_bytes",)
+    gloo, nccl = traced["mesh"]["gloo"], traced["mesh"]["nccl"]
+    want = {k: v for k, v in gloo["stats"].items() if k in keys}
+    for r, wire in enumerate(mesh_wire):
+        got = {k: v // n_steps for k, v in wire.items() if k in keys and v}
+        if any(wire[k] % n_steps for k in got) or got != want:
+            fail(f"mesh train rank {r} measured {json.dumps(wire)} over "
+                 f"{n_steps} steps; the gloo route's trace counts "
+                 f"{json.dumps(want)} a step")
+    log(f"[roofline] mesh cross-check, the (2, 2) 13-layer bf16 zamba2 "
+        f"train step a rank a step: the fake-group trace, gloo route, "
+        f"{json.dumps(want)} equals what each of the {len(mesh_wire)} ranks "
+        f"measured; the NCCL route would issue "
+        f"{json.dumps({k: v for k, v in nccl['stats'].items() if k in keys})}"
+        f" (collective term {nccl['terms']['collective_s']:.4f}s over NVLink "
+        f"and the network, gloo route {gloo['terms']['collective_s']:.4f}s); "
+        f"traced arguments {gloo['memory']['argument_bytes']} bytes, peak "
+        f"{gloo['memory']['peak_bytes']} bytes a rank")
 
 
 def card_or_cpu(device):
@@ -4215,6 +4547,9 @@ def main():
     if sys.argv[1:] == ["--paper-tables"]:
         from repro_torch import scenarios
         paper_tables_phase(scenarios)
+        return
+    if sys.argv[1:2] == ["--trace-steps"] and len(sys.argv) == 3:
+        trace_steps(sys.argv[2])
         return
     import torch
     if not torch.cuda.is_available():
@@ -4255,6 +4590,7 @@ def main():
         return
     records = kernel_phase(torch, sk)
     finish_paper_tables(tables)
+    traces = start_trace_steps()
 
     sk.reset_launches()
     t0 = time.perf_counter()
@@ -4320,7 +4656,7 @@ def main():
     t0 = time.perf_counter()
     mesh_launches = mesh_serve_phase(torch)
     log(f"[time] mesh-serve phase {time.perf_counter() - t0:.1f}s")
-    for name in ("zamba2", "moe"):
+    for name in ("zamba2", "moe", "encdec"):
         if mesh_launches[name]["flash_fwd.mma"] <= 0:
             fail(f"flash_fwd never launched on the mesh's {name} path")
     if mesh_launches["zamba2"]["ssd_scan.mma"] <= 0:
@@ -4336,6 +4672,12 @@ def main():
             fail(f"{k} never launched on the mesh train path")
     if mesh_train["moe"]["launches"]["flash_fwd.mma"] <= 0:
         fail("flash_fwd never launched on the qwen3-moe train path")
+
+    # ---- the launch toolchain: the timed steps on meta tensors ----------- #
+    t0 = time.perf_counter()
+    roofline_phase(finish_trace_steps(traces), mesh_train["bf16_wire"],
+                   mesh_train["n_steps"])
+    log(f"[time] roofline phase {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in ("rarest_keys", "island_has", "match_requests", "flash_fwd",
@@ -4359,10 +4701,10 @@ def main():
             # the bf16 prefill + decode of qwen3-moe and of seamless
             "moe_launches": slice_launches["moe"].get(kernel, 0),
             "encdec_launches": slice_launches["encdec"].get(kernel, 0),
-            # rank 0 of the (2, 2) mesh: the bf16 zamba2 and qwen3-moe
-            # prefill + decode on its local heads
+            # rank 0 of the (2, 2) mesh: the bf16 zamba2, qwen3-moe and
+            # seamless prefill + decode on its local heads
             "mesh_launches": sum(mesh_launches[m].get(kernel, 0)
-                                 for m in ("zamba2", "moe")),
+                                 for m in ("zamba2", "moe", "encdec")),
             # the timed local-head shapes of a (2, 2) mesh rank
             "mesh_shapes": [{k: r[k] for k in (
                 "case", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -15,19 +15,31 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MMA_TYPES = (torch.bfloat16, torch.float16)
 
 
-def on_card(*tensors: torch.Tensor) -> bool:
-    """True when the tensors lie on a CUDA device, False on the CPU.
-    Mixed devices and any other device type raise."""
+def _device_kind(tensors, allowed) -> str:
     kinds = {t.device.type for t in tensors if t is not None}
     if len(kinds) > 1:
         raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
     kind = kinds.pop() if kinds else "cpu"
-    if kind == "cuda":
-        return True
-    if kind == "cpu":
-        return False
-    raise ValueError(f"unsupported device type {kind!r}: "
-                     "repro_torch runs on 'cuda' or 'cpu'")
+    if kind not in allowed:
+        raise ValueError(f"unsupported device type {kind!r}: "
+                         "repro_torch runs on 'cuda' or 'cpu'")
+    return kind
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on a CUDA device, False on the CPU.
+    Mixed devices and any other device type raise."""
+    return _device_kind(tensors, ("cuda", "cpu")) == "cuda"
+
+
+def kernel_op(*tensors: torch.Tensor) -> bool:
+    """`on_card` for a kernel that is also a `torch.library.custom_op`
+    (`flash_fwd`, `ssd_scan`): True on CUDA (the op launches the kernel)
+    and on meta (the op's registered fake gives outputs of the right
+    shape and dtype and computes nothing, so a step traces on meta
+    tensors with the kernel's work counted: `launch.op_analysis`), False
+    on the CPU.  Any other device raises."""
+    return _device_kind(tensors, ("cuda", "cpu", "meta")) != "cpu"
 
 
 def lib():

@@ -19,6 +19,13 @@ masked rows give finite numbers as the reference's do.  GQA maps kv head =
 q head // (Hq / Hkv).  Like the SSD launch, the launch raises when grad
 mode is on and an input requires grad: a gradient goes through
 `ops.FlashAttention`.
+
+On CUDA and on meta tensors `flash_fwd` goes through the custom op
+``repro_torch::flash_fwd``: its CUDA implementation is the launch, its
+registered fake gives the outputs' shapes and dtypes (a meta trace,
+`launch.op_analysis`), and its FLOP formula is the bound's, 4 FLOP a
+head dim a (query, key) pair alive under the mask (`live_pairs`), so
+`torch.utils.flop_counter` counts the kernel's work whatever runs it.
 """
 from __future__ import annotations
 
@@ -26,8 +33,10 @@ from typing import Dict, Tuple
 
 import torch
 
+from torch.utils.flop_counter import register_flop_formula
+
 from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, MMA_TYPES,
-                                        check, lib, on_card, refuse_grad,
+                                        check, kernel_op, lib, refuse_grad,
                                         require, stream)
 from repro_torch.kernels.flash_attention.ops import brick_fwd
 
@@ -89,12 +98,73 @@ def flash_fwd_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch_flash_fwd(q, k, v, causal, window, v1=True)
 
 
+def live_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs alive under the mask, query i and key j counted
+    from 0 alike: j <= i when causal, j > i - window with a window.  The
+    work attention needs, in closed form: the count a query is linear in
+    its position between the points where the mask's edges bend (Skv,
+    the window, Skv + window - 1), so each stretch is one arithmetic
+    series."""
+    def alive(q):
+        hi = min(Skv - 1, q) if causal else Skv - 1
+        lo = max(0, q - window + 1) if window else 0
+        return hi - lo + 1
+    cuts = {0, Sq}
+    for c in (Skv, window, Skv + window - 1) if window else (Skv,):
+        if 0 < c < Sq:
+            cuts.add(c)
+    pts = sorted(cuts)
+    n = 0
+    for a, b in zip(pts, pts[1:]):
+        fa, fb = alive(a), alive(b - 1)
+        if fa > 0 and fb > 0:
+            n += (b - a) * (fa + fb) // 2
+    return n
+
+
+def flash_fwd_flops(B: int, Sq: int, Skv: int, Hq: int, D: int,
+                    causal: bool, window: int) -> int:
+    """The forward's FLOP: QK^T and PV, 2 D each, a live pair a head."""
+    return 4 * B * Hq * D * live_pairs(Sq, Skv, causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch_flash_fwd(q, k, v, causal, window)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, window):
+    B, Sq, Hq, D = q.shape
+    if k.dtype != q.dtype or v.dtype != q.dtype or q.dtype not in FLOAT_TYPES:
+        raise TypeError(f"flash_fwd: q, k, v in one of {FLOAT_TYPES}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
+            or k.shape[2] < 1 or Hq % k.shape[2]:
+        raise ValueError(f"flash_fwd: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    return (torch.empty_like(q),
+            q.new_empty((B, Sq, Hq), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _(q_shape, k_shape, v_shape, causal, window, *args, **kwargs) -> int:
+    B, Sq, Hq, D = q_shape
+    return flash_fwd_flops(B, Sq, k_shape[1], Hq, D, causal, window)
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (out (B,Sq,Hq,D) in q's
     dtype, lse (B,Sq,Hq) f32).  CUDA tensors launch the kernel (or raise);
-    CPU tensors take `flash_fwd_plain`."""
-    if on_card(q, k, v):
-        return _launch_flash_fwd(q, k, v, causal, window)
+    meta tensors take the op's fake; CPU tensors take
+    `flash_fwd_plain`."""
+    if kernel_op(q, k, v):
+        refuse_grad("flash_fwd", q, k, v)
+        return torch.ops.repro_torch.flash_fwd(q, k, v, bool(causal),
+                                               int(window))
     return flash_fwd_plain(q, k, v, causal=causal, window=window)

@@ -21,6 +21,12 @@ one to ``LAUNCHES["ssd_scan.mma"]`` too when the launch took the
 tensor-core route; nowhere else.  The launch gives outputs that autograd
 cannot see through, so it raises when grad mode is on and an input
 requires grad: a gradient goes through `kernels.ssd.ops.SSDScan`.
+
+On CUDA and on meta tensors `ssd_scan` goes through the custom op
+``repro_torch::ssd_scan``: its CUDA implementation is the launch, its
+registered fake gives the outputs' shapes and dtypes (a meta trace,
+`launch.op_analysis`), and its FLOP formula is the bound's chunked FLOP
+(`ssd_ops`), so `torch.utils.flop_counter` counts the kernel's work.
 """
 from __future__ import annotations
 
@@ -28,8 +34,10 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, check, lib,
-                                        on_card, refuse_grad, require,
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, check,
+                                        kernel_op, lib, refuse_grad, require,
                                         stream)
 from repro_torch.models.ssm import ssd_scan as chunked_scan
 
@@ -102,13 +110,58 @@ def ssd_scan_v1(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return _launch_ssd_scan(x, dt, A, Bm, Cm, chunk, v1=True)
 
 
+def ssd_ops(B: int, S: int, H: int, P: int, N: int, chunk: int) -> int:
+    """FLOP of the chunked scan over the real steps, in closed form: per
+    chunk of Lc steps the causal half of C B^T and of its product with
+    x dt, Lc(Lc+1)(N+P), plus the state's read and update, 4 Lc N P;
+    S // L whole chunks of L = min(chunk, S) and one of S % L."""
+    L = min(chunk, S)
+    if L <= 0:
+        return 0
+    per = lambda lc: lc * (lc + 1) * (N + P) + 4 * lc * N * P  # noqa: E731
+    return (S // L * per(L) + per(S % L)) * B * H
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cuda")
+def _ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch_ssd_scan(x, dt, A, Bm, Cm, chunk)
+
+
+@_ssd_scan_op.register_fake
+def _(x, dt, A, Bm, Cm, chunk):
+    Bsz, S, H, Pd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if dt.shape != (Bsz, S, H) or A.shape != (H,) \
+            or Bm.shape != (Bsz, S, G, N) or Cm.shape != Bm.shape \
+            or G < 1 or H % G:
+        raise ValueError(f"ssd_scan: dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, Bm {tuple(Bm.shape)}, Cm "
+                         f"{tuple(Cm.shape)} do not fit x {tuple(x.shape)}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32 \
+            or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError("ssd_scan: dt and A in f32, Bm and Cm in x's dtype")
+    return (torch.empty_like(x),
+            x.new_empty((Bsz, H, Pd, N), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _(x_shape, dt_shape, A_shape, Bm_shape, Cm_shape, chunk, *args,
+      **kwargs) -> int:
+    Bsz, S, H, Pd = x_shape
+    return ssd_ops(Bsz, S, H, Pd, Bm_shape[3], chunk)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,H,P); dt: (B,S,H) f32; A: (H,) f32; Bm/Cm: (B,S,G,N) in x's
     dtype with G | H.  Returns (y (B,S,H,P), final_state (B,H,P,N) f32).
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    `ssd_scan_plain`."""
-    if on_card(x, dt, A, Bm, Cm):
-        return _launch_ssd_scan(x, dt, A, Bm, Cm, chunk)
+    CUDA tensors launch the kernel (or raise); meta tensors take the op's
+    fake; CPU tensors take `ssd_scan_plain`."""
+    if kernel_op(x, dt, A, Bm, Cm):
+        refuse_grad("ssd_scan", x, dt, A, Bm, Cm)
+        return torch.ops.repro_torch.ssd_scan(x, dt, A, Bm, Cm, int(chunk))
     return ssd_scan_plain(x, dt, A, Bm, Cm, chunk)

@@ -13,7 +13,10 @@ Counterpart of `repro.models.attention`:
 
 Cross attention (encoder-decoder) projects the encoder's output to k/v
 once (`encode_cross_kv`) and attends to it without a mask
-(`cross_attention_block`), on one device.
+(`cross_attention_block`); under a mesh on this rank's heads, as the
+self-attention block does, and in decode from the cross caches in the
+rules' layout (`cross_cache_spec`): a flash-decode over the cache's
+sequence blocks where the rules split its sequence.
 
 Under a mesh (`parallel.sharding.sharding_ctx`) `attention_block` runs
 on this rank's heads: the projections on its column
@@ -478,15 +481,26 @@ def _cache_fill(cache: torch.Tensor, new: torch.Tensor, src, c_spec,
 # --------------------------------------------------------------------------- #
 # Cross attention (encoder-decoder)
 # --------------------------------------------------------------------------- #
-def cross_attention_block(params: dict, x: torch.Tensor, enc_kv: Tuple,
-                          cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, St, d); enc_kv = (k, v), (B, S_src, Hkv, D), precomputed from
-    the encoder's output.  One query per sequence attends in one product;
-    a longer query runs full attention up to 4096 x 4096 scores, the brick
-    scan above."""
-    dt = x.dtype
-    q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
-    k, v = enc_kv
+def cross_cache_spec(cfg: ModelConfig, src_len: Optional[int] = None):
+    """The rules' layout of a cross k/v (B, S_src, Hkv, D) cache:
+    ``("batch", "kv_seq", "kv_heads", None)`` over the global batch and
+    ``src_len`` (by default the source length that the serve step
+    installed from the caches' ``"src_len"``); all None off a mesh."""
+    if shlib.current_mesh() is None:
+        return (None,) * 4
+    if src_len is None:
+        src_len = shlib.current_dim("src_len")
+    return act_spec((shlib.current_dim("batch"), src_len, cfg.num_kv_heads,
+                     cfg.head_dim), "batch", "kv_seq", "kv_heads", None)
+
+
+def _cross_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Attention without a mask of q (B, Sq, Hq, D) over k/v (B, S_src,
+    Hkv, D).  One query per sequence attends in one product; a longer
+    query runs full attention up to 4096 x 4096 scores, the brick scan
+    above."""
+    dt = q.dtype
     B, Sq = q.shape[0], q.shape[1]
     if Sq == 1:
         Hq, Hkv, D = q.shape[2], k.shape[2], q.shape[-1]
@@ -499,13 +513,68 @@ def cross_attention_block(params: dict, x: torch.Tensor, enc_kv: Tuple,
     else:
         out = brick_attention(q, k, v, causal=False, cq=cfg.attn_chunk_q,
                               ck=cfg.attn_chunk_kv)
-    return torch.einsum("bshe,hed->bsd", out.to(dt), params["wo"].to(dt))
+    return out
+
+
+def cross_attention_block(params: dict, x: torch.Tensor, enc_kv: Tuple,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, St, d); enc_kv = (k, v[, layout]): (B, S_src, Hkv, D) from
+    the encoder's output (`encode_cross_kv`) or the cross caches.
+
+    Under a mesh ``x`` is this rank's block of the residual stream
+    (gathered to whole sequences here), the weights their head blocks,
+    (k, v) this rank's blocks in ``layout``, which a mesh requires (the
+    projections' kv heads, or the caches' `cross_cache_spec`); the
+    output is its block of the residual stream, the row-parallel ``wo``
+    summed over its head axes.
+    A cache whose sequence the rules split is read where it lies: every
+    query head against this rank's sequence block, the blocks combined
+    with pmax / psum (`decode_attention`, with every position alive)."""
+    from repro_torch.models.layers import block_input, reduce_to_residual
+    from repro_torch.parallel import collectives as C
+    mesh, rules = shlib.current_mesh(), shlib.current_rules()
+    x = block_input(x)
+    dt = x.dtype
+    q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
+    k, v = enc_kv[0], enc_kv[1]
+    if mesh is None:
+        out = _cross_attend(q, k, v, cfg)
+        return torch.einsum("bshe,hed->bsd", out.to(dt),
+                            params["wo"].to(dt))
+    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+    qa = shlib._fit_axes(mesh, Hq, rules.mesh_axes("heads"))
+    b = act_spec((shlib.current_dim("batch"),), "batch")[0]
+    src = enc_kv[2]
+    sa = entry_axes(src[1])
+    if sa:
+        S_src = k.shape[1] * C.axis_size(sa, mesh)
+        qf = C.relayout(q, (b, None, qa, None), (b, None, None, None), mesh)
+        kc = C.relayout(k, src, (b, src[1], None, None), mesh)
+        vc = C.relayout(v, src, (b, src[1], None, None), mesh)
+        out = decode_attention(qf, kc, vc, S_src - 1, seq_axes=sa,
+                               Sc=S_src)
+        out = C.relayout(out, (b, None, None, None), (b, None, qa, None),
+                         mesh)
+    else:
+        ka = entry_axes(src[2])
+        out = _cross_attend(q, kv_for_heads(k, qa, ka, Hq, Hkv),
+                            kv_for_heads(v, qa, ka, Hq, Hkv), cfg)
+    y = torch.einsum("bshe,hed->bsd", out.to(dt), params["wo"].to(dt))
+    return reduce_to_residual(y, qa)
 
 
 def encode_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The cross-attention k, v (B, S_src, Hkv, D) of the encoder output."""
+                    ) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
+    """The cross-attention k, v (B, S_src, Hkv, D) of the encoder output
+    (whole sequences), and their layout: under a mesh this rank's rows
+    and the kv heads of its ``wk`` / ``wv`` blocks."""
     dt = enc_out.dtype
     k = torch.einsum("bsd,dhe->bshe", enc_out, params["wk"].to(dt))
     v = torch.einsum("bsd,dhe->bshe", enc_out, params["wv"].to(dt))
-    return k, v
+    mesh = shlib.current_mesh()
+    if mesh is None:
+        return k, v, (None,) * 4
+    b = act_spec((shlib.current_dim("batch"),), "batch")[0]
+    ka = shlib._fit_axes(mesh, cfg.num_kv_heads,
+                         shlib.current_rules().mesh_axes("kv_heads"))
+    return k, v, (b, None, ka or None, None)

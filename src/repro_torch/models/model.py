@@ -20,8 +20,14 @@ batch rows, the param blocks of `param_sharding`, the cache blocks of
 `logical_to_mesh_axes`; a leaf that the rules' FSDP axes split is
 gathered to its TP block a layer at a time (`_gather_fsdp`), and the
 caches carry ``"global"`` = (batch, cache_len), the global sizes their
-blocks were cut from (`init_caches`).  The encoder-decoder family runs
-on one device only.  The residual stream between blocks is in the
+blocks were cut from (`init_caches`), and an encoder-decoder's
+``"src_len"``, the source length of its cross caches.  The
+encoder-decoder family runs on a mesh as the decoder-only ones do: the
+encoder's residual is split as the decoder's, over its own sequence
+(`encode`), its output gathered to whole sequences, each decoder
+layer's cross attention on its local heads
+(`attention.cross_attention_block`), the cross caches in the rules'
+layout.  The residual stream between blocks is in the
 rules' ``("batch", "seq_act", None)`` layout (`layers.residual_spec`),
 its sequence split over ``model`` under `DEFAULT_RULES`.  `loss_fn` is
 the train objective; in train mode with ``cfg.remat == "full"`` each
@@ -178,8 +184,8 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 ) -> dict:
     """Zero caches for ``batch`` sequences of ``cache_len`` positions.
     With a mesh, this rank's blocks of them under the rules' layout
-    (`logical_to_mesh_axes`; default `infer_rules(cfg)`), and
-    ``"global"`` = (batch, cache_len)."""
+    (`logical_to_mesh_axes`; default `infer_rules(cfg)`), ``"global"`` =
+    (batch, cache_len) and, for an encoder-decoder, ``"src_len"``."""
     tree = cache_specs_tree(cfg, batch, cache_len, src_len)
     if mesh is None:
         return init_params(0, tree, device=device)
@@ -190,6 +196,8 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
         s.logical, s.dtype, s.init), tree)
     out = init_params(0, local, device=device)
     out["global"] = (batch, cache_len)
+    if cfg.is_encdec:
+        out["src_len"] = src_len
     return out
 
 
@@ -289,20 +297,27 @@ def _index_tree(tree, r: int):
 
 def _layer_enc_kv(cfg: ModelConfig, lp: dict, lc: Optional[dict], enc_out,
                   mode: str):
-    """A decoder layer's cross-attention (k, v): from its cache in decode,
-    else projected from the encoder output; None without cross attention."""
+    """A decoder layer's cross-attention (k, v, layout): from its cache in
+    decode (the cache's layout), else projected from the encoder output
+    (this rank's kv heads); None without cross attention."""
     if enc_out is None or "cross" not in lp:
         return None
     if mode == "decode" and lc is not None and "cross_k" in lc:
-        return lc["cross_k"], lc["cross_v"]
+        return lc["cross_k"], lc["cross_v"], attn_lib.cross_cache_spec(cfg)
     return attn_lib.encode_cross_kv(lp["cross"], enc_out, cfg)
 
 
-def _write_cross(lc: dict, enc_kv) -> None:
+def _write_cross(cfg: ModelConfig, lc: dict, enc_kv) -> None:
     """Prefill: the cross k/v into the layer's ``cross_k`` / ``cross_v``
-    caches, in place (their length is the source length they were made
-    for)."""
-    for name, new in zip(("cross_k", "cross_v"), enc_kv):
+    caches, in place, in the caches' layout (under a mesh a relayout
+    from the projections' kv heads: an all-to-all where the rules split
+    the cache's sequence); their length is the source length they were
+    made for."""
+    from repro_torch.parallel.collectives import relayout
+    k, v, src = enc_kv
+    dst = attn_lib.cross_cache_spec(cfg, k.shape[1])
+    for name, new in (("cross_k", k), ("cross_v", v)):
+        new = relayout(new, src, dst, shlib.current_mesh())
         if lc[name].shape != new.shape:
             raise ValueError(f"{name} cache {tuple(lc[name].shape)} does not "
                              f"fit the encoder output's {tuple(new.shape)}: "
@@ -316,15 +331,17 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Run all layer groups, repeat by repeat.  Returns (x, aux, caches):
     the caches given, updated in place, or None without caches.
-    ``enc_out`` (B, S_src, d) feeds the decoder layers' cross attention."""
+    ``enc_out`` (B, S_src, d), whole sequences, feeds the decoder layers'
+    cross attention."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cross = cfg.is_encdec and enc_out is not None
     remat = mode == "train" and cfg.remat != "none"
     if remat and cfg.remat != "full":
         raise NotImplementedError(_REMAT_DOTS)
     for gi, g in enumerate(groups):
         gp = params[f"g{gi}"]
         gc = caches[f"g{gi}"] if caches is not None else None
-        plan = (_fsdp_plan(group_param_specs(cfg, g))
+        plan = (_fsdp_plan(group_param_specs(cfg, g, cross))
                 if shlib.current_mesh() is not None else {})
         # a stacked leaf whose FSDP took the repeat axis: whole at once
         gp = _gather_fsdp(gp, {p: v for p, v in plan.items() if v[0][0]})
@@ -352,7 +369,7 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
                     enc_kv=enc_kv, causal=causal)
                 if (lc is not None and "cross_k" in lc and enc_kv is not None
                         and mode == "prefill"):
-                    _write_cross(lc, enc_kv)
+                    _write_cross(cfg, lc, enc_kv)
                 if lc is not None and nc:
                     for name, new in nc.items():
                         dst = lc[name]            # a view into the stack
@@ -418,13 +435,19 @@ def _positions(cfg: ModelConfig, batch: dict, B: int, S: int, device,
 
 def encode(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """The encoder over ``batch["enc_embeds"]`` (B, S_src, d): its groups
-    without a causal mask, then ``enc_norm``."""
+    without a causal mask, then ``enc_norm``.  Under a mesh its residual
+    lies in the decoder's layout over the source's own sequence (split
+    over ``model`` under `DEFAULT_RULES`), and the output is gathered to
+    this rank's rows, whole sequences, for the cross k/v."""
     x = batch["enc_embeds"].to(cfg.act_dtype)
     B, S = x.shape[0], x.shape[1]
     pos = torch.broadcast_to(torch.arange(S, device=x.device), (B, S))
-    x, _, _ = run_groups(cfg, cfg.encoder_groups, params["encoder"], x,
-                         mode="train", positions=pos, causal=False)
-    return L.rms_norm(x, params["encoder"]["enc_norm"], cfg.norm_eps)
+    with shlib.with_dims(seq=S):
+        x = L.to_residual(x)
+        x, _, _ = run_groups(cfg, cfg.encoder_groups, params["encoder"], x,
+                             mode="train", positions=pos, causal=False)
+        x = L.rms_norm(x, params["encoder"]["enc_norm"], cfg.norm_eps)
+        return L.block_input(x)
 
 
 def backbone(cfg: ModelConfig, params: dict, batch: dict, *,
@@ -462,8 +485,9 @@ def backbone(cfg: ModelConfig, params: dict, batch: dict, *,
         else:                    # prefill: every sequence sits at S
             new_idx = torch.full((B,), S, dtype=torch.int32, device=x.device)
         new_caches = {"decoder": new_dec, "index": new_idx}
-        if "global" in caches:
-            new_caches["global"] = caches["global"]
+        for key in ("global", "src_len"):
+            if key in caches:
+                new_caches[key] = caches[key]
     return x, aux, new_caches
 
 
@@ -484,18 +508,21 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
 
 def _gather_top(cfg: ModelConfig, params: dict) -> dict:
     """Under a mesh, ``params`` with the leaves outside the layer groups
-    (the embedding and head, the shared attention) gathered from their
-    FSDP blocks once; ``params`` as is without one."""
+    (the embedding and head, the shared attention, the encoder's final
+    norm) gathered from their FSDP blocks once; ``params`` as is without
+    one."""
     if shlib.current_mesh() is None:
         return params
+    specs = model_param_specs(cfg)
+    top = {k: v for k, v in specs.items() if k not in ("decoder", "encoder")}
+    out = {**params, **_gather_fsdp({k: params[k] for k in top},
+                                    _fsdp_plan(top))}
     if cfg.is_encdec:
-        raise NotImplementedError(
-            "the encoder-decoder family runs on one device: its sharded "
-            "cross attention is not ported (ROADMAP queue 1, item 2)")
-    top = {k: v for k, v in model_param_specs(cfg).items()
-           if k not in ("decoder", "encoder")}
-    return {**params, **_gather_fsdp({k: params[k] for k in top},
-                                     _fsdp_plan(top))}
+        # the encoder's final norm; its groups gather in `run_groups`
+        norm = {"enc_norm": specs["encoder"]["enc_norm"]}
+        out["encoder"] = {**params["encoder"], **_gather_fsdp(
+            {"enc_norm": params["encoder"]["enc_norm"]}, _fsdp_plan(norm))}
+    return out
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict

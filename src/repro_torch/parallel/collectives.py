@@ -39,12 +39,24 @@ replicated on, divided by the world size
 sequence-sharded, a block's entry is an `all_gather` (backward
 reduce-scatter) and its exit a `psum_scatter` (backward all-gather),
 the pair's own collectives.  `pmax` carries no gradient.
+
+A fake group (``dist.init_process_group("fake", ...)``, torch's
+`FakeProcessGroup`) carries meta tensors and moves nothing: a dry run
+(`launch.dryrun`) traces one rank's step through the same code, each
+collective counted in `STATS` as it would be on the route it models,
+`FAKE_ROUTE` (``"gloo"``: the all-reduce and slice, the gathered list;
+``"nccl"``: `reduce_scatter_tensor`, `all_gather_into_tensor`).  While
+a `recording` is open, every collective issued on any group appends its
+op: the reference's HLO name of what crossed the wire (``all-reduce``,
+``all-gather``, ``reduce-scatter``, ``all-to-all``), its operand and
+output bytes, the group's size and the mesh axes it spans.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -63,8 +75,36 @@ STATS: collections.Counter = collections.Counter()
 _GROUPS: Dict[tuple, tuple] = {}
 
 
+# the route a fake group models: "gloo" or "nccl"
+FAKE_ROUTE = "gloo"
+
+# the op lists of the open `recording`s
+_RECORDINGS: List[list] = []
+
+
 def reset_stats() -> None:
     STATS.clear()
+
+
+@contextlib.contextmanager
+def recording():
+    """The collectives issued inside, as a list of ops (`_note`)."""
+    ops: list = []
+    _RECORDINGS.append(ops)
+    try:
+        yield ops
+    finally:
+        _RECORDINGS.remove(ops)
+
+
+def _note(kind: str, operand: torch.Tensor, out_bytes: int, n: int,
+          axes: Tuple[str, ...]) -> None:
+    if _RECORDINGS:
+        op = {"kind": kind, "operand_bytes": operand.numel()
+              * operand.element_size(), "out_bytes": int(out_bytes),
+              "group": n, "axes": list(axes)}
+        for ops in _RECORDINGS:
+            ops.append(op)
 
 
 def _axes(axes: Axes) -> Tuple[str, ...]:
@@ -111,13 +151,25 @@ def _group(mesh, axes: Tuple[str, ...]):
     return _GROUPS[key][1], _GROUPS[key][2]
 
 
-def _wire(group) -> str:
+def _route(group) -> str:
+    """The backend whose route a collective takes: the group's own, or
+    `FAKE_ROUTE` on a fake group."""
     backend = dist.get_backend(group)
-    if backend == "gloo":
-        return "cpu"
-    if backend == "nccl":
-        return "cuda"
+    if backend == "fake":
+        if FAKE_ROUTE not in ("gloo", "nccl"):
+            raise ValueError(f"FAKE_ROUTE {FAKE_ROUTE!r}: 'gloo' or 'nccl'")
+        return FAKE_ROUTE
+    if backend in ("gloo", "nccl"):
+        return backend
     raise ValueError(f"unsupported process-group backend {backend!r}")
+
+
+def _wire(group) -> str:
+    """The device the group's tensors cross on: CPU for gloo, CUDA for
+    NCCL, meta for a fake group."""
+    if dist.get_backend(group) == "fake":
+        return "meta"
+    return "cpu" if _route(group) == "gloo" else "cuda"
 
 
 def _to_wire(x: torch.Tensor, wire: str) -> torch.Tensor:
@@ -154,13 +206,14 @@ def _reduce(x: torch.Tensor, axes: Axes, mesh, op, kind: str
     if axis_size(axes, mesh) == 1:
         return x
     t0 = time.perf_counter()
-    group, _ = _group(mesh, axes)
+    group, order = _group(mesh, axes)
     wide = x.dtype in (torch.bfloat16, torch.float16)
     w = _to_wire(x.float() if wide else x, _wire(group))
     if w.data_ptr() == x.data_ptr():
         w = w.clone()
     STATS[kind] += 1
     STATS["wire_bytes"] += w.numel() * w.element_size()
+    _note("all-reduce", w, w.numel() * w.element_size(), len(order), axes)
     dist.all_reduce(w, op=op, group=group)
     out = _from_wire(w, x.device).to(x.dtype)
     STATS["seconds"] += time.perf_counter() - t0
@@ -188,7 +241,8 @@ def _all_gather(x: torch.Tensor, axes: Tuple[str, ...], mesh, axis: int
     w = _as_words(_to_wire(x, wire))
     STATS["all_gather"] += 1
     STATS["wire_bytes"] += w.numel() * w.element_size()
-    if wire == "cuda":
+    _note("all-gather", w, n * w.numel() * w.element_size(), n, axes)
+    if _route(group) == "nccl":
         # one tensor of the group ranks' blocks, in group-rank order
         flat = torch.empty((n,) + tuple(w.shape), dtype=w.dtype,
                            device=w.device)
@@ -215,7 +269,7 @@ def _psum_scatter(x: torch.Tensor, axes: Tuple[str, ...], mesh, dim: int
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"over {axes} ({n})")
     group, order = _group(mesh, axes)
-    if _wire(group) != "cuda":
+    if _route(group) != "nccl":
         return local_chunk(_reduce(x, axes, mesh, dist.ReduceOp.SUM,
                                    "psum"), axes, mesh, dim).contiguous()
     t0 = time.perf_counter()
@@ -227,11 +281,12 @@ def _psum_scatter(x: torch.Tensor, axes: Tuple[str, ...], mesh, dim: int
     chunks = xs.reshape((n, c) + tuple(xs.shape[1:]))
     inp = _to_wire(chunks[torch.tensor(_inverse(order),
                                        device=chunks.device)]
-                   .reshape(xs.shape).contiguous(), "cuda")
+                   .reshape(xs.shape).contiguous(), _wire(group))
     out = torch.empty((c,) + tuple(xs.shape[1:]), dtype=inp.dtype,
                       device=inp.device)
     STATS["psum_scatter"] += 1
     STATS["wire_bytes"] += inp.numel() * inp.element_size()
+    _note("reduce-scatter", inp, out.numel() * out.element_size(), n, axes)
     dist.reduce_scatter_tensor(out, inp, op=dist.ReduceOp.SUM, group=group)
     out = out.movedim(0, dim).to(x.dtype).contiguous()
     STATS["seconds"] += time.perf_counter() - t0
@@ -390,6 +445,7 @@ def _all_to_all(x: torch.Tensor, axes: Tuple[str, ...], mesh,
     out = torch.empty_like(inp)
     STATS["all_to_all"] += 1
     STATS["wire_bytes"] += inp.numel() * inp.element_size()
+    _note("all-to-all", inp, inp.numel() * inp.element_size(), n, axes)
     dist.all_to_all_single(out, inp, group=group)
     if out.dtype != x.dtype:
         out = out.view(x.dtype)

@@ -30,6 +30,7 @@ sequence, the cache length).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
@@ -319,6 +320,16 @@ def current_dim(name: str, default: Optional[int] = None) -> int:
     if name not in dims:
         raise ValueError(f"sharding_ctx holds no global {name!r}")
     return dims[name]
+
+
+def with_dims(**dims: int):
+    """`sharding_ctx` of the current mesh and rules with ``dims`` over
+    the installed global sizes (the encoder's own sequence); a null
+    context outside a mesh."""
+    if _CURRENT["mesh"] is None:
+        return contextlib.nullcontext()
+    return sharding_ctx(_CURRENT["mesh"], _CURRENT["rules"],
+                        **{**_CURRENT["dims"], **dims})
 
 
 def act_spec(shape: Sequence[int], *logical: Optional[str]) -> Spec:

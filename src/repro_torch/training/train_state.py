@@ -276,8 +276,9 @@ def _serve_step(cfg: ModelConfig, fn, mesh, rules, return_logits: bool):
         if batch_size(batch) != B:
             raise ValueError(f"a batch of {batch_size(batch)} rows for "
                              f"caches cut for {B}")
+        src = {"src_len": caches["src_len"]} if "src_len" in caches else {}
         with shlib.sharding_ctx(mesh, rules, batch=B, cache_len=cache_len,
-                                seq=_seq_len(batch)):
+                                seq=_seq_len(batch), **src):
             last_logits, new_caches = fn(cfg, params,
                                          local_batch(batch, B, mesh, rules),
                                          caches)

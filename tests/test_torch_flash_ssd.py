@@ -5,6 +5,8 @@ interpret mode; the SSD scan (chunked torch scan, the kernel's plain
 version) against `ssd_naive`, `ssd_scan` and `ssd_pallas` in interpret
 mode.  Inputs come from numpy seeds and are handed to both packages;
 tolerances are the reference's own (`tests/test_kernels.py`)."""
+import types
+
 import numpy as np
 import pytest
 
@@ -218,7 +220,9 @@ def test_ssd_kernel_plain_keeps_bf16_output_dtype():
 
 def test_launchers_take_only_cuda_tensors():
     """The launch half of each wrapper refuses CPU tensors; only the public
-    function routes a CPU tensor to the plain version."""
+    function routes a CPU tensor to the plain version.  A meta tensor
+    takes the custom op's fake (outputs of the right shape, no launch);
+    any other device, and mixed devices, raise."""
     q = torch.zeros((1, 4, 2, 8))
     with pytest.raises(ValueError, match="CUDA"):
         fk._launch_flash_fwd(q, q, q, True, 0)
@@ -232,8 +236,16 @@ def test_launchers_take_only_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sk.ssd_scan_v1(x, dt, torch.zeros(2), bc, bc, 4)
     meta = torch.zeros((1, 4, 2, 8), device="meta")
+    before = (dict(fk.LAUNCHES), dict(sk.LAUNCHES))
+    out, lse = fk.flash_fwd(meta, meta, meta)
+    assert (out.device.type, out.shape, lse.shape) == (
+        "meta", meta.shape, (1, 4, 2))
+    assert (dict(fk.LAUNCHES), dict(sk.LAUNCHES)) == before
+    other = types.SimpleNamespace(device=torch.device("xla"))
     with pytest.raises(ValueError, match="unsupported device"):
-        fk.flash_fwd(meta, meta, meta)
+        fk.flash_fwd(other, other, other)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sk.ssd_scan(other, other, other, other, other)
     with pytest.raises(ValueError, match="mixed devices"):
         sk.ssd_scan(meta, dt, torch.zeros(2), bc, bc)
 
