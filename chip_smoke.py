@@ -63,12 +63,18 @@
    `ssd_scan` launched 26 and `flash_fwd` 4 times (forward and
    recompute; `.mma` in bf16) and no zero-gradient leaf; each layer's
    bf16 gradients on the same input through both routes
-   (`block_grads_check`); three timed bf16 AdamW steps (tokens/s, peak
-   memory) and a profile of one by class; the `Trainer` on a reduced zamba2 (d_model 512, S=2048, the
-   kernels) resumed from its step-5 checkpoint, equal to the straight
-   run; the 7-layer f32 zamba2 saved by `CheckpointStore`, fetched by
-   two replicas through the scalar protocol, and cold-started on the
-   card by `ServingEngine.from_swarm`, bit-equal leaves and
+   (`block_grads_check`); the f32 step under remat "dots" against
+   "full" (`dots_check`: equal, or within 1e-5); three timed bf16 AdamW
+   steps (tokens/s, peak memory) and a profile of one by class, under
+   remat "full" and then "dots" (the device ms under the recompute
+   range beside each other); the `Trainer` on a reduced zamba2 (d_model
+   512, S=2048, the kernels) resumed from its step-5 checkpoint, equal
+   to the straight run; the examples `examples/port_serve_lm.py` and
+   `examples/port_train_lm.py --size tiny --steps 10` as child
+   processes on the card (`examples_phase`); the 7-layer f32 zamba2
+   saved by `CheckpointStore`, fetched by two replicas through the
+   scalar protocol, and cold-started on the card by
+   `ServingEngine.from_swarm`, bit-equal leaves and
    `reference_serve.json`'s tokens;
 5. MoE and encoder-decoder slice: `flash_fwd` at qwen3-moe's shape (GQA
    32:4, D=128, causal) and seamless's encoder shape (16 heads, D=64, no
@@ -126,7 +132,8 @@
    class).  Then 4 gloo ranks on the card: `flash_fwd` and `ssd_scan`
    at a train rank's local shapes against their plain versions; the
    7-layer f32 zamba2 step on the mesh within 1e-4 (loss), 1e-3
-   (each gradient leaf, relative L2) and 5e-4 (params) of one device's;
+   (each gradient leaf, relative L2) and 5e-4 (params) of one device's,
+   and its gradients under remat "dots" against its own under "full";
    the 13-layer bf16 zamba2, each layer's gradients within 5e-2 of one
    device's on the same input and probe, then a warm-up and 2 timed
    steps with their wire and host-hop bytes, s in collectives, peak
@@ -136,7 +143,8 @@
    `python3 chip_smoke.py --mesh-train` builds the kernels and runs
    this phase alone;
 9. prints the per-kernel JSON line (each row with its launches on the
-   serve, MoE, enc-dec, train, mesh serve and mesh train paths), the
+   serve, MoE, enc-dec, train (remat "full" and "dots"), mesh serve and
+   mesh train paths), the
    card's name and power limit, and as the last line `{"ok": true,
    "device": {...}}`.
 
@@ -1030,6 +1038,18 @@ def serve_reference_config(ref):
         for layers, r in ref["groups"]))
 
 
+@functools.lru_cache(maxsize=1)
+def reference_tree(seed, cfg):
+    """The numpy weights of ``cfg`` drawn from ``seed`` as the reference's
+    writers drew them, kept for the next caller of the same pair (the
+    serve-reference and swarm-restore phases share the 7-layer zamba2's,
+    ~15 s of drawing on the host).  Read only: the tensors made from it
+    are copies."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params_numpy
+    return init_params_numpy(seed, M.model_param_specs(cfg))
+
+
 def reference_params(torch, ref, cfg, device):
     """The weights of ``ref["seed"]`` drawn with numpy as the reference's
     writer drew them (each leaf's sum of |w| checked against the file),
@@ -1038,11 +1058,10 @@ def reference_params(torch, ref, cfg, device):
     import numpy as np
     from repro_torch.models import model as M
     from repro_torch.models.convert import params_from_reference
-    from repro_torch.parallel.sharding import (init_params_numpy,
-                                               tree_leaves_with_path)
+    from repro_torch.parallel.sharding import tree_leaves_with_path
     specs = M.model_param_specs(cfg)
     t0 = time.perf_counter()
-    tree = init_params_numpy(ref["seed"], specs)
+    tree = reference_tree(ref["seed"], cfg)
     for path, a in tree_leaves_with_path(tree):
         want = ref["weight_abs_sums"].get(path)
         if want is not None and abs(float(np.sum(np.abs(a),
@@ -1578,7 +1597,9 @@ def profile_ranges(torch, what, fn, unprofiled_ms, ranges):
             log(f"[profile] {what}: the profile linked no kernel to {cls}'s "
                 f"range: its class reads 0 (not measured)")
     return dict(classes, device_ms=busy,
-                idle_share=max(0.0, 1 - busy / unprofiled_ms))
+                idle_share=max(0.0, 1 - busy / unprofiled_ms),
+                range_ms={cls: sum(part.values())
+                          for cls, part in inside.items()})
 
 
 def train_groups():
@@ -1759,20 +1780,106 @@ def block_grads_check(torch, cfg, params, batch, device, tol=5e-2):
             "leaves": n_leaves}
 
 
+def dots_check(torch, cfg, params, batch, device, tol=1e-5):
+    """One f32 train step through the kernels under remat "dots" against
+    the same step under "full": the loss and every gradient leaf equal,
+    or within ``tol`` relative (L2 for a leaf) where a CUDA reduction
+    adds in another order from one run to the next; both launch
+    `flash_fwd` and `ssd_scan` in the forward and again in the recompute
+    (the reference recomputes its `pallas_call`s under this policy)."""
+    c = cfg.replace(dtype="float32")
+    lf, gf, tf, nf = route_grads(torch, c.replace(remat="full"), params,
+                                 batch, device, True)
+    ld, gd, td, nd = route_grads(torch, c.replace(remat="dots"), params,
+                                 batch, device, True)
+    per, total = grad_errors(gd, gf)
+    worst = max(per, key=per.get)
+    equal = sum(bool(torch.equal(gd[p], gf[p])) for p in gf)
+    loss_rel = abs(ld - lf) / abs(lf)
+    log(f"[train] f32 remat dots vs full, kernels on: loss {ld:.6f} vs "
+        f"{lf:.6f} ({'equal' if ld == lf else f'rel {loss_rel:.3e}'}); "
+        f"{equal} of {len(gf)} gradient leaves bit-equal, worst "
+        f"{worst} rel L2 {per[worst]:.3e}, all leaves {total:.3e} (limit "
+        f"{tol:g}); launches {json.dumps(nd)} (full {json.dumps(nf)}); "
+        f"gradient {td:.2f}s (full {tf:.2f}s)")
+    if nd != nf:
+        fail(f"the dots step launched {nd}, the full step {nf}")
+    if not (loss_rel <= tol and per[worst] <= tol):
+        fail(f"f32 remat dots differs from full: loss {loss_rel:.3e}, "
+             f"leaf {worst} {per[worst]:.3e} (limit {tol:g})")
+    return {"loss_rel": loss_rel, "equal_leaves": equal,
+            "leaves": len(gf), "worst_leaf": worst,
+            "worst_rel_l2": per[worst], "launches": nd}
+
+
+def grad_peak_gib(torch, cfg, params, batch, device):
+    """The card's high-water mark over one gradient of ``cfg`` (forward
+    and backward, no update), above what it held before: what the saved
+    activations cost.  0 off the card."""
+    from repro_torch.training.train_state import loss_and_grads
+    if device != "cuda":
+        return 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    met, grads = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    del met, grads
+    return peak
+
+
+def timed_steps(torch, cfg, state, batch, n_steps, device, what):
+    """``n_steps`` timed train steps of ``cfg`` after one warm-up, from
+    ``state`` (returned with the steps taken): the median step s, each
+    step's s and loss, the kernels' launches over the timed steps, the
+    peak memory, and a profile of one more step by class."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.train_state import make_train_step
+    step = make_train_step(cfg, AdamWConfig())
+    state, met = step(state, batch)                 # warm-up
+    sync(torch, device)
+    base = 0
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    reset_model_launches()
+    times, losses = [], [float(met["loss"])]
+    for _ in range(n_steps):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        sync(torch, device)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    med = statistics.median(times)
+    run = {"state": state, "step_s": med, "times": times, "losses": losses,
+           "launches": model_launches(), "base": base,
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                        if device == "cuda" else 0.0)}
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: train losses not finite: {losses}")
+    run["classes"] = (profile_ranges(torch, what, lambda: step(state, batch),
+                                     med * 1e3, TRAIN_RANGES)
+                      if device == "cuda" else {})
+    return run
+
+
 def train_step_phase(torch, cfg=None, device="cuda", B=2, S=2048, seed=17,
                      n_steps=3):
     """zamba2-7b at full width, cut to 13 layers (13 SSD layers, 2
     shared-attention hits): one train step's loss and gradients through
-    the kernels against the plain torch paths in bf16 and in f32, then
-    ``n_steps`` timed bf16 AdamW steps after one warm-up, with their
-    launches, peak memory and a profile of one step by class.  (``cfg``
-    and ``device`` let it be rehearsed small on the CPU.)"""
+    the kernels against the plain torch paths in bf16 and in f32, and
+    under remat "dots" against "full" in f32 (`dots_check`); then
+    ``n_steps`` timed bf16 AdamW steps after one warm-up under remat
+    "full" and again under "dots", each with its launches, peak memory
+    and a profile of one step by class.  (``cfg`` and ``device`` let it
+    be rehearsed small on the CPU.)"""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     from repro_torch.models.convert import params_from_reference
-    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.sharding import init_params_numpy
-    from repro_torch.training.train_state import make_train_step
     cfg = (cfg or get_config("zamba2-7b").replace(groups=train_groups())
            ).replace(remat="full")
     specs = M.model_param_specs(cfg)
@@ -1797,59 +1904,71 @@ def train_step_phase(torch, cfg=None, device="cuda", B=2, S=2048, seed=17,
         f"{cfg.remat}, loss_chunk {cfg.loss_chunk}")
     routes = compare_routes(torch, cfg, params, batch, device)
     routes["blocks"] = block_grads_check(torch, cfg, params, batch, device)
+    routes["dots"] = dots_check(torch, cfg, params, batch, device)
     if device == "cuda":
         torch.cuda.empty_cache()
 
-    # ---- the main path: timed AdamW steps -------------------------------- #
+    # ---- the main path: timed AdamW steps, remat "full", then "dots" ---- #
     c16 = cfg.replace(dtype="bfloat16", use_pallas=True)
     state = {"params": params,
              "opt": {k: _zeros_like(torch, params) for k in ("m", "v")},
              "step": torch.zeros((), dtype=torch.int32, device=device)}
-    step = make_train_step(c16, AdamWConfig())
-    state, met = step(state, batch)                 # warm-up
-    sync(torch, device)
-    base = 0
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-    reset_model_launches()
-    times, losses = [], [float(met["loss"])]
-    for _ in range(n_steps):
-        sync(torch, device)
-        t0 = time.perf_counter()
-        state, met = step(state, batch)
-        sync(torch, device)
-        times.append(time.perf_counter() - t0)
-        losses.append(float(met["loss"]))
-    record_step(torch, "train", c16, statistics.median(times),
-                (state, batch), base, device)
-    launches = model_launches()
     want = (route_counts(2 * n_attn * n_steps, 2 * n_ssd * n_steps,
                          2 * n_attn * n_steps, 2 * n_ssd * n_steps)
             if device == "cuda" else route_counts(0, 0, 0, 0))
-    if launches != want:
-        fail(f"{n_steps} bf16 train steps launched {launches}, expected "
-             f"{want}")
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"train losses not finite: {losses}")
-    med = statistics.median(times)
-    peak_gb = (torch.cuda.max_memory_allocated() / 2 ** 30
-               if device == "cuda" else 0.0)
     flop = 8 * n_params * B * S
-    log(f"[train] bf16 AdamW step: median {med:.4f}s over {n_steps} steps "
-        f"(each {json.dumps([round(x, 4) for x in times])}) = "
-        f"{B * S / med:.0f} tokens/s; model FLOP 8*N*T = {flop:.3e} "
-        f"({flop / med / 1e12:.1f} TFLOP/s, {flop / med / BF16_OPS_PER_S:.3f} "
-        f"of the bf16 dense peak); peak memory {peak_gb:.2f} GiB; losses "
-        f"{json.dumps([round(x, 5) for x in losses])}; launches over the "
-        f"{n_steps} steps {json.dumps(launches)}")
-    classes = (profile_ranges(torch, "one bf16 train step",
-                              lambda: step(state, batch), med * 1e3,
-                              TRAIN_RANGES) if device == "cuda" else {})
-    return {"step_s": med, "tokens_per_s": B * S / med, "peak_gib": peak_gb,
-            "launches": launches, "per_step": {k: v // n_steps for k, v in
-                                               launches.items()},
-            "classes": classes, "routes": routes}
+    runs = {}
+    for remat in ("full", "dots"):
+        c = c16.replace(remat=remat)
+        run = runs[remat] = timed_steps(
+            torch, c, state, batch, n_steps, device,
+            f"one bf16 train step, remat {remat}")
+        state = run.pop("state")
+        if remat == "full":
+            record_step(torch, "train", c, run["step_s"], (state, batch),
+                        run["base"], device)
+        if run["launches"] != want:
+            fail(f"{n_steps} bf16 train steps under remat {remat} launched "
+                 f"{run['launches']}, expected {want}")
+        med = run["step_s"]
+        log(f"[train] bf16 AdamW step, remat {remat}: median {med:.4f}s "
+            f"over {n_steps} steps (each "
+            f"{json.dumps([round(x, 4) for x in run['times']])}) = "
+            f"{B * S / med:.0f} tokens/s; model FLOP 8*N*T = {flop:.3e} "
+            f"({flop / med / 1e12:.1f} TFLOP/s, "
+            f"{flop / med / BF16_OPS_PER_S:.3f} of the bf16 dense peak); "
+            f"peak memory {run['peak_gib']:.2f} GiB; losses "
+            f"{json.dumps([round(x, 5) for x in run['losses']])}; launches "
+            f"over the {n_steps} steps {json.dumps(run['launches'])}")
+    full, dots = runs["full"], runs["dots"]
+    rec_ms = {k: r["classes"].get("range_ms", {}).get("recompute", 0.0)
+              for k, r in runs.items()}
+    grad_peak = {r: grad_peak_gib(torch, c16.replace(remat=r),
+                                  state["params"], batch, device)
+                 for r in ("full", "dots")}
+    log(f"[train] remat dots beside full (bf16, {card_or_cpu(device)}): "
+        f"step {dots['step_s']:.4f}s vs {full['step_s']:.4f}s "
+        f"({dots['step_s'] / full['step_s'] - 1:+.2%}), tokens/s "
+        f"{B * S / dots['step_s']:.0f} vs {B * S / full['step_s']:.0f}, "
+        f"peak {dots['peak_gib']:.2f} vs {full['peak_gib']:.2f} GiB "
+        f"({dots['peak_gib'] - full['peak_gib']:+.2f}), a gradient's own "
+        f"peak above its inputs {grad_peak['dots']:.2f} vs "
+        f"{grad_peak['full']:.2f} GiB, device ms under "
+        f"remat_recompute {rec_ms['dots']:.1f} vs {rec_ms['full']:.1f}, "
+        f"device ms a step {dots['classes'].get('device_ms', 0):.1f} vs "
+        f"{full['classes'].get('device_ms', 0):.1f}; launches a step "
+        f"{json.dumps({k: v // n_steps for k, v in dots['launches'].items()})}"
+        f" both")
+    return {"step_s": full["step_s"],
+            "tokens_per_s": B * S / full["step_s"],
+            "peak_gib": full["peak_gib"], "launches": full["launches"],
+            "per_step": {k: v // n_steps for k, v in full["launches"].items()},
+            "classes": full["classes"], "routes": routes,
+            "dots": {"step_s": dots["step_s"], "peak_gib": dots["peak_gib"],
+                     "grad_peak_gib": grad_peak,
+                     "recompute_ms": rec_ms["dots"],
+                     "per_step": {k: v // n_steps
+                                  for k, v in dots["launches"].items()}}}
 
 
 def _zeros_like(torch, tree):
@@ -1950,8 +2069,7 @@ def swarm_restore_phase(torch, cfg=None, want=None, device="cuda",
     from repro_torch.checkpoint.swarm_restore import checkpoint_application
     from repro_torch.core import Agent
     from repro_torch.models import model as M
-    from repro_torch.parallel.sharding import (init_params_numpy,
-                                               tree_leaves_with_path)
+    from repro_torch.parallel.sharding import tree_leaves_with_path
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     ref = json.loads(SERVE_FILE.read_text())
     cfg = cfg or serve_reference_config(ref)
@@ -1960,7 +2078,7 @@ def swarm_restore_phase(torch, cfg=None, want=None, device="cuda",
     root = ROOT / "build" / "chip_swarm"
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
-    tree = init_params_numpy(ref["seed"], specs)
+    tree = reference_tree(ref["seed"], cfg)
     draw_s = time.perf_counter() - t0
     store = CheckpointStore(str(root / "origin"))
     t0 = time.perf_counter()
@@ -1989,6 +2107,7 @@ def swarm_restore_phase(torch, cfg=None, want=None, device="cuda",
         if x.device.type != device or not np.array_equal(x.cpu().numpy(), a):
             fail(f"restored leaf {path} differs from the saved one")
     del tree
+    reference_tree.cache_clear()
     eng.submit(prompt, max_new=len(want))
     (req,) = list(eng.queue)
     t0 = time.perf_counter()
@@ -2009,6 +2128,46 @@ def swarm_restore_phase(torch, cfg=None, want=None, device="cuda",
     if req.out_tokens != want:
         fail("the engine cold-started from the swarm gives other tokens")
     shutil.rmtree(root, ignore_errors=True)
+
+
+# =================== the examples on the card ============================ #
+EXAMPLES = (("examples/port_serve_lm.py",),
+            ("examples/port_train_lm.py", "--size", "tiny", "--steps", "10",
+             "--ckpt-dir", "build/chip_examples"))
+
+
+def examples_phase(limit=300.0, device=None):
+    """The port's examples as child processes side by side (each on the
+    card, their default, unless ``device`` names another): their output
+    logged, a non-zero exit or an overrun of ``limit`` seconds a failure.
+    The train example's checkpoints go under build/ and are deleted."""
+    import shutil
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    extra = ("--device", device) if device else ()
+    t0 = time.perf_counter()
+    procs = [(args[0], subprocess.Popen(
+        [sys.executable, *args, *extra], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for args in EXAMPLES]
+    try:
+        for name, proc in procs:
+            try:
+                out, err = proc.communicate(
+                    timeout=max(1.0, limit - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                fail(f"{name} ran past {limit:.0f}s")
+            for line in out.splitlines():
+                log(f"[example] {name}: {line}")
+            if proc.returncode:
+                fail(f"{name} exited {proc.returncode}: {err[-2000:]}")
+            log(f"[time] {name} done {time.perf_counter() - t0:.1f}s after "
+                f"the examples started ({card_or_cpu(device or 'cuda')})")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(ROOT / "build" / "chip_examples", ignore_errors=True)
 
 
 # ============ the paper's experiments and the torrent ring ================ #
@@ -3966,7 +4125,17 @@ def _mesh_train_rank(rank, world, init_file, backend, device, job):
         del full
         _free(torch, device)
         batch = train_batch(torch, cfg, B, S, seed, device)
+        # the same step's gradients under remat "dots", held against the
+        # "full" ones below (before the update moves the params)
+        reset_model_launches()
+        t0 = time.perf_counter()
+        met_d, grads_d = loss_and_grads(cfg.replace(remat="dots"), params,
+                                        batch, mesh, rules)
+        sync(torch, device)
+        dots = {"loss": float(met_d["loss"]), "s": time.perf_counter() - t0,
+                "launches": model_launches()}
         C.reset_stats()
+        reset_model_launches()
         sync(torch, device)
         t0 = time.perf_counter()
         met, grads = loss_and_grads(cfg, params, batch, mesh, rules)
@@ -3974,7 +4143,17 @@ def _mesh_train_rank(rank, world, init_file, backend, device, job):
                      mesh=mesh, leaf_axes=_leaf_axes(cfg, mesh, rules))
         sync(torch, device)
         a = {"loss": float(met["loss"]), "s": time.perf_counter() - t0,
-             "wire": dict(C.STATS), "peak_gib": _peak(torch, device)}
+             "wire": dict(C.STATS), "peak_gib": _peak(torch, device),
+             "launches": model_launches()}
+        got = dict(tree_leaves_with_path(grads_d))
+        per = {p: float((got[p].double() - g.double()).norm()
+                        / g.double().norm().clamp_min(1e-30))
+               for p, g in tree_leaves_with_path(grads)}
+        worst = max(per, key=per.get)
+        a["dots"] = dict(dots, worst=(worst, per[worst]), leaves=len(per),
+                         equal=sum(bool(torch.equal(got[p], g)) for p, g in
+                                   tree_leaves_with_path(grads)))
+        del grads_d, got
         want = (torch.load(Path(job["root"]) / "single_f32.pt", mmap=True)
                 if rank == 0 else None)
         a["worst_grad"] = _gathered_check(
@@ -4238,10 +4417,12 @@ def mesh_train_phase(torch, job=None, device="cuda", limit=900.0):
     first holds `flash_fwd` and `ssd_scan` at its local shapes against
     their plain versions).  Fails unless a's mesh step is within 1e-4
     (loss), 1e-3 relative L2 (each gradient leaf) and 5e-4 (params) of
-    one device's, b's layer gate holds and its steps launch both kernels
-    on every rank, and d's int8 loss lies within 5e-2 of the exact one,
-    its worst gradient leaf within `INT8_GRAD_REL` relative L2 of the
-    exact one's, and every gradient is finite.  Returns rank 0's
+    one device's and its gradients under remat "dots" equal its own
+    under "full" (or lie within 1e-5 relative, with the same launches),
+    b's layer gate holds and its steps launch both kernels on every
+    rank, and d's int8 loss lies within 5e-2 of the exact one, its worst
+    gradient leaf within `INT8_GRAD_REL` relative L2 of the exact one's,
+    and every gradient is finite.  Returns rank 0's
     launches over b's timed steps, and c's."""
     root = ROOT / "build" / "chip_mesh_train"
     job = dict(job or mesh_train_jobs(), root=str(root))
@@ -4320,6 +4501,20 @@ def mesh_train_phase(torch, job=None, device="cuda", limit=900.0):
         fail("mesh-train a: the mesh f32 step differs from one device's")
     if any(abs(o["f32"]["loss"] - a["loss"]) > 0 for o in outs):
         fail("mesh-train a: the ranks' losses differ")
+    for o in outs:
+        f, d = o["f32"], o["f32"]["dots"]
+        lrel = abs(d["loss"] - f["loss"]) / abs(f["loss"])
+        log(f"[mesh-train] a rank {o['rank']}: the (2, 2) f32 step under "
+            f"remat dots against full: loss {d['loss']:.6f} vs "
+            f"{f['loss']:.6f} ({'equal' if lrel == 0 else f'rel {lrel:.3e}'})"
+            f"; {d['equal']} of {d['leaves']} gradient blocks bit-equal, "
+            f"worst {d['worst'][0]} rel L2 {d['worst'][1]:.3e} (limit 1e-5); "
+            f"{d['s']:.2f}s; launches {json.dumps(d['launches'])} (full "
+            f"{json.dumps(f['launches'])})")
+        if not (lrel <= 1e-5 and d["worst"][1] <= 1e-5
+                and d["launches"] == f["launches"]):
+            fail(f"mesh-train a rank {o['rank']}: remat dots differs from "
+                 "full")
     b = o0["bf16"]
     log(f"[mesh-train] b: bf16 layer gate, each layer on the mesh vs one "
         f"device on the same input and probe: {b['gate_leaves']} gradient "
@@ -4624,13 +4819,15 @@ def main():
     train = train_step_phase(torch)
     log(f"[time] train-step phase {time.perf_counter() - t0:.1f}s")
     missing = [k for k in ("flash_fwd", "ssd_scan") if train["launches"][k]
-               <= 0]
+               <= 0 or train["dots"]["per_step"][k] <= 0]
     if missing:
         fail(f"kernels never launched on the train path: {missing}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     trainer_phase(torch)
     log(f"[time] trainer phase {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    examples_phase()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     swarm_restore_phase(torch)
@@ -4639,6 +4836,7 @@ def main():
     # ---- MoE and encoder-decoder slice ------------------------------------ #
     torch.cuda.empty_cache()
     slice_launches = moe_encdec_phases(torch)
+    reference_tree.cache_clear()        # the last reference file's weights
     for name, counts in slice_launches.items():
         if counts["flash_fwd"] <= 0:
             fail(f"flash_fwd never launched on the {name} path")
@@ -4698,6 +4896,9 @@ def main():
             # the train path: the timed bf16 steps (forward + recompute)
             "train_launches": train["launches"].get(kernel, 0),
             "train_launches_per_step": train["per_step"].get(kernel, 0),
+            # the same steps under remat "dots" (the kernels recomputed)
+            "train_dots_launches_per_step": train["dots"]["per_step"].get(
+                kernel, 0),
             # the bf16 prefill + decode of qwen3-moe and of seamless
             "moe_launches": slice_launches["moe"].get(kernel, 0),
             "encdec_launches": slice_launches["encdec"].get(kernel, 0),

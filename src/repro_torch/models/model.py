@@ -30,17 +30,23 @@ layer's cross attention on its local heads
 layout.  The residual stream between blocks is in the
 rules' ``("batch", "seq_act", None)`` layout (`layers.residual_spec`),
 its sequence split over ``model`` under `DEFAULT_RULES`.  `loss_fn` is
-the train objective; in train mode with ``cfg.remat == "full"`` each
-repeat's layers run under activation checkpointing (the reference's
-`jax.checkpoint` of its scan body), so the backward recomputes them,
-the repeat's FSDP gather included.
+the train objective; in train mode with ``cfg.remat`` "full" or "dots"
+each repeat's layers run under activation checkpointing (the
+reference's `jax.checkpoint` of its scan body), so the backward
+recomputes them, the repeat's FSDP gather included; under "dots" the
+outputs of the products with no batch dimensions are saved instead
+(`_DotsPolicy`, the reference's `dots_with_no_batch_dims_saveable`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.overrides import TorchFunctionMode
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import GroupSpec, LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -51,11 +57,6 @@ from repro_torch.parallel import sharding as shlib
 from repro_torch.parallel.sharding import (ParamSpec, init_params,
                                            tree_leaves_with_path,
                                            tree_map_specs)
-
-_REMAT_DOTS = ("remat='dots' (save the matmul outputs, recompute the rest) "
-               "is not ported (ROADMAP queue 2, after parity); use 'full' or "
-               "'none'")
-
 
 # --------------------------------------------------------------------------- #
 # Param specs
@@ -336,8 +337,7 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cross = cfg.is_encdec and enc_out is not None
     remat = mode == "train" and cfg.remat != "none"
-    if remat and cfg.remat != "full":
-        raise NotImplementedError(_REMAT_DOTS)
+    context_fn = _dots_contexts if cfg.remat == "dots" else noop_context_fn
     for gi, g in enumerate(groups):
         gp = params[f"g{gi}"]
         gc = caches[f"g{gi}"] if caches is not None else None
@@ -354,7 +354,8 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
                 x, aux = checkpoint(_remat_body(), cfg, g.layers,
                                     _index_tree(gp, r), plan, x, aux,
                                     shared_params, positions, enc_out,
-                                    causal, use_reentrant=False)
+                                    causal, use_reentrant=False,
+                                    context_fn=context_fn)
                 continue
             p_slice = _gather_fsdp(_index_tree(gp, r), plan)
             c_slice = _index_tree(gc, r) if gc is not None else None
@@ -380,21 +381,91 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
 
 def _remat_body():
     """`_repeat_body` for one checkpointed repeat, from its param blocks
-    and FSDP plan: its first call is the forward; a later call is the
-    recompute that the backward triggers, run under a
-    ``remat_recompute`` profiler range so that a profile can tell its
-    kernels from the backward node that unpacked the input."""
+    and FSDP plan: its first call is the forward, under a
+    ``remat_forward`` profiler range; a later call is the recompute that
+    the backward triggers, under ``remat_recompute``, so that a profile
+    can tell its kernels from the backward node that unpacked the input.
+    Both calls open a range: under remat "dots" the recompute may
+    dispatch only the ops that the forward did."""
     calls = [0]
 
     def body(cfg, layers, p_local, plan, *args):
         calls[0] += 1
-        if calls[0] == 1:
-            return _repeat_body(cfg, layers, _gather_fsdp(p_local, plan),
-                                *args)
-        with torch.profiler.record_function("remat_recompute"):
+        name = "remat_forward" if calls[0] == 1 else "remat_recompute"
+        with torch.profiler.record_function(name):
             return _repeat_body(cfg, layers, _gather_fsdp(p_local, plan),
                                 *args)
     return body
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+_MATMUL_FNS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+
+
+def _no_batch_dims(func, args) -> bool:
+    """Whether a torch-level product is a dot with no batch dimensions in
+    the reference's sense (a `dot_general` whose dimension numbers name
+    no batch dimension).  An einsum has one where a letter lies in every
+    operand and in the output; a matmul where both operands carry batch
+    dimensions; `torch.bmm` always.  The dispatcher cannot tell: an
+    unbatched einsum reaches it as a `bmm` with a batch of 1, as does a
+    batched one whose batch happens to be 1.  (The port's products are
+    einsums, `@` and `torch.bmm`; any other is recomputed.)"""
+    if func is torch.einsum:
+        ins, out = args[0].replace(" ", "").split("->")
+        ins = ins.split(",")
+        return len(ins) > 1 and not set(out).intersection(*map(set, ins))
+    if func in _MATMUL_FNS:
+        return min(args[0].ndim, args[1].ndim) <= 2
+    return False
+
+
+class _DotsPolicy(TorchFunctionMode):
+    """remat "dots": save the outputs of the products with no batch
+    dimensions, recompute everything else (the reference's
+    `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`).  As a
+    function mode it sees each product with its einsum equation and
+    marks the matmul launches it dispatches; `policy` is the selective
+    checkpoint's policy over those launches.  The kernels' custom ops,
+    the collectives and the batched products (scores, experts) are
+    recomputed, as a `pallas_call` or a batched `dot_general` is in the
+    reference."""
+
+    def __init__(self):
+        super().__init__()
+        self.depth = 0          # unbatched products in flight
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if not _no_batch_dims(func, args):
+            return func(*args, **(kwargs or {}))
+        self.depth += 1
+        try:
+            return func(*args, **(kwargs or {}))
+        finally:
+            self.depth -= 1
+
+    def policy(self, ctx, op, *args, **kwargs):
+        if self.depth and op in _MATMULS:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _entered(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def _dots_contexts():
+    """`checkpoint`'s ``context_fn`` under remat "dots": the forward and
+    the recompute each run inside the marking function mode and their
+    selective-checkpoint dispatch mode."""
+    dots = _DotsPolicy()
+    forward, recompute = create_selective_checkpoint_contexts(dots.policy)
+    return _entered(dots, forward), _entered(dots, recompute)
 
 
 def _repeat_body(cfg: ModelConfig, layers, p_slice: dict, x: torch.Tensor,

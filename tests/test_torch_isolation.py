@@ -47,9 +47,18 @@ def test_import_all_of_repro_torch_without_jax_or_reference():
     assert int(out.stdout.strip()) >= 17
 
 
+EXAMPLES = sorted(str(p.relative_to(ROOT))
+                  for p in (ROOT / "examples").glob("port_*.py"))
+
+
+def test_every_reference_example_but_quickstart_has_a_port():
+    assert EXAMPLES == [f"examples/port_{n}.py" for n in (
+        "elastic_failover", "serve_lm", "train_lm", "volunteer_cloud")]
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py"] + EXAMPLES))
 def test_no_import_of_jax_or_reference(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):

@@ -299,7 +299,8 @@ def _small(kind):
 
 def dryrun_rank(rank):
     """In a process of its own: the dry runs of the reduced zamba2 train
-    step on (2, 2) (gloo and nccl routes) and of a reduced decode cell."""
+    step on (2, 2) (gloo and nccl routes) and of a reduced decode cell,
+    and the traces of that train step under remat "full" and "dots"."""
     from repro_torch.launch import dryrun
     out = {}
     for key, arch, kind, route in (
@@ -309,6 +310,11 @@ def dryrun_rank(rank):
         out[key] = dryrun.run_cell(arch, _small(kind).name, mesh_shape=(2, 2),
                                    reduced=True, shape=_small(kind),
                                    route=route)
+    cfg = dryrun.lower_cell_config("zamba2-7b", reduced=True)
+    for remat in ("full", "dots"):
+        out[remat] = dryrun.trace_cell(cfg.replace(remat=remat),
+                                       _small("train"),
+                                       dryrun.make_mesh(shape=(2, 2)))
     return out
 
 
@@ -362,6 +368,18 @@ def test_dry_run_cells_are_ok(dry_runs):
     # the nccl route reduce-scatters where gloo all-reduces and slices
     assert dry_runs["train"]["analysis"]["stats"].get("psum_scatter", 0) > 0
     assert "psum_scatter" not in dry_runs["gloo"]["analysis"]["stats"]
+
+
+def test_dry_run_under_remat_dots(dry_runs):
+    """remat "dots" on the fake group: fewer FLOPs than "full" (the saved
+    products are not computed again) and more than no remat, a peak at
+    least as high, and the FSDP gathers recomputed as under "full"."""
+    dots, full = dry_runs["dots"], dry_runs["full"]
+    none = dry_runs["train"]["analysis"]
+    assert none["flops"] < dots["analysis"]["flops"] \
+        < full["analysis"]["flops"]
+    assert dots["memory"]["peak_bytes"] >= full["memory"]["peak_bytes"]
+    assert dots["analysis"]["stats"] == full["analysis"]["stats"]
 
 
 def test_dry_run_counts_what_gloo_ranks_measure(dry_runs, tmp_path):
