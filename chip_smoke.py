@@ -43,16 +43,19 @@
 3. serve slice: holds `flash_fwd` and `ssd_scan` against their plain
    versions (the reference's kernel-test cases and the serve path's
    shapes: f32 on the CUDA-core kernels, bf16 on the tensor-core ones,
-   and an f16 scan whose M passes f16's range, on the CUDA cores),
-   times each at the serve shape against its CUDA-core kernel in turns
-   (v1, v2, v2, v1) and flash beside `scaled_dot_product_attention`; runs
+   flash in f16 too, and an f16 scan whose M passes f16's range, on the
+   CUDA cores), times the scan at the serve shape against its CUDA-core
+   kernel in turns (v1, v2, v2, v1) and flash's wgmma kernel at the six
+   main-path shapes against its mma.sync kernel in turns (v2, v3, v3,
+   v2), beside `scaled_dot_product_attention`; runs
    zamba2-7b at full width cut to 7 layers in f32 against
    `src/repro_torch/reference_serve.json` (the reference package's
    prefill and decode logits); drives zamba2-7b at full depth and width in
    bf16 (B=4, S=2048 prefill, 32 decode steps) through `make_prefill_step`
    / `make_decode_step`, checks that each prefill launched `ssd_scan` 81
-   and `flash_fwd` 13 times, all on the tensor-core route (by the
-   wrappers' counts and by the kernel names in a profiler trace), and
+   and `flash_fwd` 13 times, all on the tensor-core routes (`.wgmma`
+   for flash: by the wrappers' counts and by the kernel names in a
+   profiler trace), and
    holds its logits to the plain torch
    paths; serves 4 requests through `ServingEngine` on the f32 model and
    holds each to a full-forward greedy decode;
@@ -61,7 +64,8 @@
    one train step's loss and gradients through the kernels against the
    plain torch paths in f32 and in bf16 (`compare_routes`), with
    `ssd_scan` launched 26 and `flash_fwd` 4 times (forward and
-   recompute; `.mma` in bf16) and no zero-gradient leaf; each layer's
+   recompute; `.wgmma` and `.mma` in bf16) and no zero-gradient leaf;
+   each layer's
    bf16 gradients on the same input through both routes
    (`block_grads_check`); the f32 step under remat "dots" against
    "full" (`dots_check`: equal, or within 1e-5); three timed bf16 AdamW
@@ -78,14 +82,14 @@
    `reference_serve.json`'s tokens;
 5. MoE and encoder-decoder slice: `flash_fwd` at qwen3-moe's shape (GQA
    32:4, D=128, causal) and seamless's encoder shape (16 heads, D=64, no
-   mask), bf16 on `.mma`, against its plain version, timed beside
+   mask), bf16 on `.wgmma`, against its plain version, timed beside
    `scaled_dot_product_attention` (in step 3's kernel phase);
    qwen3-moe-30b-a3b at full width cut to 2 layers in f32 against
    `src/repro_torch/reference_serve_moe.json` (tokens, logits, and each
    MoE call's expert counts and capacity drops), and its `ServingEngine`
    against a full-forward greedy decode; qwen3-moe-30b-a3b at full width
    and depth (48 layers, 30.5e9 params) in bf16, B=4 S=2048 prefill and 32
-   decode steps with 48 `.mma` flash launches a prefill, a profile by
+   decode steps with 48 `.wgmma` flash launches a prefill, a profile by
    class (expert GEMMs, dispatch and combine glue, attention projections,
    `flash_fwd`, elementwise), the idle share, the host syncs of a decode
    step, and every layer through both routes; seamless-m4t-medium whole
@@ -158,6 +162,7 @@ import json
 import math
 import os
 import statistics
+import re
 import subprocess
 import sys
 import time
@@ -185,14 +190,14 @@ SOURCES = {
     "rarest_keys": "src/repro_torch/csrc/swarm_kernels.cu",
     "island_has": "src/repro_torch/csrc/swarm_kernels.cu",
     "match_requests": "src/repro_torch/csrc/swarm_kernels.cu",
-    "flash_fwd": "src/repro_torch/csrc/flash_fwd_mma.cu",
+    "flash_fwd": "src/repro_torch/csrc/flash_fwd_wgmma.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan_mma.cu",
 }
 # the route each kernel of the line ran on its main path: bf16 serving
-# takes the tensor-core kernels, the P4P cost rows one thread-block
-# cluster
+# takes the tensor-core kernels (flash on wgmma and TMA, the SSD scan on
+# mma.sync), the P4P cost rows one thread-block cluster
 ROUTES = {"rarest_keys": "cuda", "island_has": "cuda-cluster",
-          "match_requests": "cuda", "flash_fwd": "cuda-mma",
+          "match_requests": "cuda", "flash_fwd": "cuda-wgmma",
           "ssd_scan": "cuda-mma"}
 REPLACES = {
     "rarest_keys": "src/repro/core/swarm_kernels.py:112",
@@ -774,8 +779,9 @@ def end_to_end_phase(torch, sk, scenarios, names=CHIP_RUNS, device="cuda"):
 # ====================== serve slice: kernel phase ======================= #
 def model_kernel_phase(torch):
     """`flash_fwd` and `ssd_scan` against their plain versions on CUDA
-    tensors: the reference's kernel-test cases, then the serve path's
-    shapes (timed; the last record of each kernel is the reported one).
+    tensors: the reference's kernel-test cases, then the main paths'
+    shapes (timed; the kernels line reports each kernel's first timed
+    record).
     Their bounds count the work the package's FLOP formulas count
     (`live_pairs`, `ssd_ops`: what a meta trace of a step counts)."""
     import numpy as np
@@ -805,17 +811,20 @@ def model_kernel_phase(torch):
         log(f"[kernel] {name} {case}: {what} max abs err {err:.3e} "
             f"(tolerance {tol:.3g}{' of max ' + f'{scale:.3f}' if relative else ''})")
 
-    def timed(name, kernel, v1, plain, n_bytes, n_ops, peak, library=None):
-        """Device ms of the kernel and of its CUDA-core version v1, in
-        turns (v1, v2, v2, v1), each the mean of its two turns (the kernel
-        alone, twice, where ``v1`` is None)."""
+    def timed(name, kernel, prev, plain, n_bytes, n_ops, peak, library=None,
+              turn=("v1", "v2")):
+        """Device ms of the kernel and of the version it replaced,
+        ``prev`` (the scan's CUDA-core v1, flash's mma.sync v2; named by
+        ``turn``), in turns (prev, kernel, kernel, prev), each the mean of
+        its two turns (the kernel alone, twice, where ``prev`` is None)."""
         turns = [device_ms(f, reps=10, inner=3)
-                 for f in ((kernel,) * 2 if v1 is None
-                           else (v1, kernel, kernel, v1))]
-        if v1 is None:
-            ms, v1_ms = sum(turns) / 2, None
+                 for f in ((kernel,) * 2 if prev is None
+                           else (prev, kernel, kernel, prev))]
+        if prev is None:
+            ms, prev_ms = sum(turns) / 2, None
         else:
-            ms, v1_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            ms = (turns[1] + turns[2]) / 2
+            prev_ms = (turns[0] + turns[3]) / 2
         ms_call = call_ms(kernel, reps=10)
         plain_ms = call_ms(plain, reps=5)
         lib_ms = device_ms(library, reps=10, inner=3) if library else None
@@ -824,104 +833,91 @@ def model_kernel_phase(torch):
         b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                       else (t_ops, "operations"))
         rec = records[name][-1]
-        rec.update(ms=ms, v1_ms=v1_ms, call_ms=ms_call, plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                   bytes=n_bytes, ops=n_ops)
-        log(f"[kernel] {name} {rec['case']}: ms={ms:.4f} (turns "
-            f"{'v2 v2' if v1 is None else 'v1 v2 v2 v1'} "
+        rec.update({"ms": ms, f"{turn[0]}_ms": prev_ms, "call_ms": ms_call,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms, "bytes": n_bytes, "ops": n_ops})
+        order = (f"{turn[1]} {turn[1]}" if prev is None else
+                 f"{turn[0]} {turn[1]} {turn[1]} {turn[0]}")
+        log(f"[kernel] {name} {rec['case']}: ms={ms:.4f} (turns {order} "
             f"{' '.join(f'{x:.4f}' for x in turns)}; one call as issued "
-            f"{ms_call:.4f}) v1_ms={v1_ms} plain_ms={plain_ms:.3f} "
+            f"{ms_call:.4f}) {turn[0]}_ms={prev_ms} plain_ms={plain_ms:.3f} "
             f"bytes={n_bytes} "
             f"ops={n_ops} bound_ms={b_ms:.4f} ({b_by})"
             + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""))
 
+    def took_route(n0, route, case):
+        """Fail unless the one launch since ``n0`` took ``route``."""
+        got = {k: fk.LAUNCHES[k] - n0[k] for k in fk.LAUNCHES}
+        want = {"flash_fwd": 1, "flash_fwd.wgmma": int(route == "wgmma"),
+                "flash_fwd.mma": int(route == "mma")}
+        if got != want:
+            fail(f"flash_fwd [{case}] launched {got}, expected the "
+                 f"{route} route")
+
     # ---- flash_fwd ------------------------------------------------------ #
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+    # the reference's kernel-test cases: f32 on the CUDA cores, bf16 and
+    # f16 on wgmma (head dims 16 to 64, multiples of 8)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2),
+                       (torch.float16, 2e-2)):
         for B, Sq, Skv, Hq, Hkv, D, causal, window in FLASH_CASES:
             q, k, v = (up(s, dtype) for s in ((B, Sq, Hq, D),
                                               (B, Skv, Hkv, D),
                                               (B, Skv, Hkv, D)))
+            case = f"{(B, Sq, Skv, Hq, Hkv, D, causal, window)} {dtype}"
+            n0 = dict(fk.LAUNCHES)
             out, lse = fk.flash_fwd(q, k, v, causal=causal, window=window)
+            took_route(n0, "v1" if dtype == torch.float32 else "wgmma",
+                       case)
             want, wlse = fk.flash_fwd_plain(q, k, v, causal=causal,
                                             window=window)
-            case = f"{(B, Sq, Skv, Hq, Hkv, D, causal, window)} {dtype}"
             check("flash_fwd", case, out, want, tol, "out")
             check("flash_fwd", case, lse, wlse,
                   1e-4 if dtype == torch.float32 else 2e-2, "lse")
-    B, S, H, D = 4, 2048, 32, 112
-    q, k, v = (up((B, S, H, D), torch.bfloat16) for _ in range(3))
-    out, lse = fk.flash_fwd(q, k, v, causal=True)
-    want, _ = fk.flash_fwd_plain(q, k, v, causal=True)
-    check("flash_fwd", f"B={B} S={S} H={H} D={D} causal bf16", out, want,
-          2e-2, "out")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    timed("flash_fwd",
-          lambda: fk.flash_fwd(q, k, v, causal=True),
-          lambda: fk.flash_fwd_v1(q, k, v, causal=True),
-          lambda: fk.flash_fwd_plain(q, k, v, causal=True),
-          4 * q.numel() * q.element_size() + lse.numel() * 4,
-          4 * B * H * D * live_pairs(S, S, True, 0), BF16_OPS_PER_S,
-          library=lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                         is_causal=True))
-    del q, k, v, qt, kt, vt, out, lse, want
-    # the train step's shape (B=2: the 13-layer zamba2 of train_step_phase)
-    q, k, v = (up((2, S, H, D), torch.bfloat16) for _ in range(3))
-    out, _ = fk.flash_fwd(q, k, v, causal=True)
-    want, _ = fk.flash_fwd_plain(q, k, v, causal=True)
-    check("flash_fwd", f"B=2 S={S} H={H} D={D} causal bf16 (train step)",
-          out, want, 2e-2, "out")
-    del q, k, v, out, want
-    # the MoE and enc-dec slice's shapes: qwen3-moe's decoder (GQA 32:4,
-    # D=128, causal) and seamless's encoder (16 heads, D=64, no mask)
-    for Hq, Hkv, D, causal, what in ((32, 4, 128, True, "qwen3-moe"),
-                                     (16, 16, 64, False, "seamless enc")):
+    # the main paths' shapes at S=2048, each on wgmma against its plain
+    # version and timed in turns against mma.sync beside SDPA (the first
+    # is the one the kernels line reports): zamba2's prefill (32 heads,
+    # D=112, causal), qwen3-moe's decoder (GQA 32:4, D=128, causal),
+    # seamless's encoder (16 heads, D=64, no mask), a (2, 2) serve mesh
+    # rank's local heads of zamba2 and of qwen3-moe, and a (2, 2) train
+    # rank's of zamba2; the 13-layer zamba2 train step's (B=2) is checked
+    # and not timed.  Out within 2e-2, and within 1e-2 of max |want|
+    # where |out| is small (one bf16 ulp of the largest value is 2^-7 =
+    # 7.8e-3 of it; |out| is ~0.04 without a mask over 2048 keys).
+    S = 2048
+    for B, Hq, Hkv, D, causal, what, timed_here in (
+            (4, 32, 32, 112, True, "zamba2 prefill", True),
+            (2, 32, 32, 112, True, "train step", False),
+            (4, 32, 4, 128, True, "qwen3-moe", True),
+            (4, 16, 16, 64, False, "seamless enc", True),
+            (2, 16, 16, 112, True, "zamba2, a mesh rank", True),
+            (2, 16, 2, 128, True, "qwen3-moe, a mesh rank", True),
+            (1, 16, 16, 112, True, "zamba2, a mesh train rank", True)):
         q = up((B, S, Hq, D), torch.bfloat16)
         k, v = (up((B, S, Hkv, D), torch.bfloat16) for _ in range(2))
-        n0 = dict(fk.LAUNCHES)
-        out, lse = fk.flash_fwd(q, k, v, causal=causal)
-        if fk.LAUNCHES["flash_fwd.mma"] != n0["flash_fwd.mma"] + 1:
-            fail(f"flash_fwd at {what}'s shape did not take the .mma route")
-        want, wlse = fk.flash_fwd_plain(q, k, v, causal=causal)
         case = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
                 f"{'causal' if causal else 'bidirectional'} bf16 ({what})")
-        # one bf16 ulp of the largest value is 2^-7 = 7.8e-3 of it: out
-        # within 1e-2 of max |want| (|out| is ~0.04 without a mask over
-        # 2048 keys), and never more than 2e-2
+        n0 = dict(fk.LAUNCHES)
+        out, lse = fk.flash_fwd(q, k, v, causal=causal)
+        took_route(n0, "wgmma", case)
+        want, wlse = fk.flash_fwd_plain(q, k, v, causal=causal)
         check("flash_fwd", case, out, want,
-              min(2e-2, 1e-2 * float(want.float().abs().max())), "out")
+              min(2e-2, 1e-2 * float(want.float().abs().max()))
+              if what in ("qwen3-moe", "seamless enc") else 2e-2, "out")
         check("flash_fwd", case, lse, wlse, 2e-2, "lse")
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        timed("flash_fwd",
-              lambda: fk.flash_fwd(q, k, v, causal=causal), None,
-              lambda: fk.flash_fwd_plain(q, k, v, causal=causal),
-              nbytes(q, k, v, out) + lse.numel() * 4,
-              4 * B * Hq * D * live_pairs(S, S, causal, 0), BF16_OPS_PER_S,
-              library=lambda: F.scaled_dot_product_attention(
-                  qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv))
-        del q, k, v, qt, kt, vt, out, lse, want, wlse
-    # the mesh slice's local heads, one rank of a (2, 2) mesh at B=4:
-    # zamba2's shared attention (32 heads over model = 2, D=112) and
-    # qwen3-moe's (32:4 heads: 16 query heads read 2 kv heads)
-    # and a (2, 2) train rank's: one row of zamba2's
-    for Bm, Hq, Hkv, D, what in (
-            (2, 16, 16, 112, "zamba2, a mesh rank"),
-            (2, 16, 2, 128, "qwen3-moe, a mesh rank"),
-            (1, 16, 16, 112, "zamba2, a mesh train rank")):
-        q = up((Bm, S, Hq, D), torch.bfloat16)
-        k, v = (up((Bm, S, Hkv, D), torch.bfloat16) for _ in range(2))
-        out, lse = fk.flash_fwd(q, k, v, causal=True)
-        want, _ = fk.flash_fwd_plain(q, k, v, causal=True)
-        case = f"B={Bm} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16 ({what})"
-        check("flash_fwd", case, out, want, 2e-2, "out")
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        timed("flash_fwd",
-              lambda: fk.flash_fwd(q, k, v, causal=True), None,
-              lambda: fk.flash_fwd_plain(q, k, v, causal=True),
-              nbytes(q, k, v, out) + lse.numel() * 4,
-              4 * Bm * Hq * D * live_pairs(S, S, True, 0), BF16_OPS_PER_S,
-              library=lambda: F.scaled_dot_product_attention(
-                  qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv))
-        del q, k, v, qt, kt, vt, out, lse, want
+        if timed_here:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            timed("flash_fwd",
+                  lambda: fk.flash_fwd(q, k, v, causal=causal),
+                  lambda: fk.flash_fwd_v2(q, k, v, causal=causal),
+                  lambda: fk.flash_fwd_plain(q, k, v, causal=causal),
+                  nbytes(q, k, v, out) + lse.numel() * 4,
+                  4 * B * Hq * D * live_pairs(S, S, causal, 0),
+                  BF16_OPS_PER_S,
+                  library=lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv),
+                  turn=("v2", "v3"))
+            del qt, kt, vt
+        del q, k, v, out, lse, want, wlse
 
     # ---- ssd_scan -------------------------------------------------------- #
     def ssd_inputs(B, S, H, P, G, N, dtype):
@@ -1011,9 +1007,12 @@ def reset_model_launches():
     ssk.reset_launches()
 
 
-def route_counts(n_flash, n_ssd, n_flash_mma, n_ssd_mma):
-    return {"flash_fwd": n_flash, "flash_fwd.mma": n_flash_mma,
-            "ssd_scan": n_ssd, "ssd_scan.mma": n_ssd_mma}
+def route_counts(n_flash, n_ssd, n_flash_tc, n_ssd_mma):
+    """The launch counts a run should show: ``n_flash_tc`` of the flash
+    launches on the tensor cores, which on every main path is the wgmma
+    route (bf16 at head dims 64, 112 and 128), none on mma.sync."""
+    return {"flash_fwd": n_flash, "flash_fwd.wgmma": n_flash_tc,
+            "flash_fwd.mma": 0, "ssd_scan": n_ssd, "ssd_scan.mma": n_ssd_mma}
 
 
 def layer_counts(cfg):
@@ -1149,9 +1148,10 @@ def sync(torch, device):
         torch.cuda.synchronize()
 
 
-# the kernels' names in a device trace, tensor-core and CUDA-core
-MODEL_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel",
-                 "ssd_scan_mma_kernel", "ssd_scan_kernel")
+# the kernels' names in a device trace: flash on wgmma, on mma.sync and on
+# the CUDA cores, the scan on the tensor and the CUDA cores
+MODEL_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel",
+                 "flash_fwd_kernel", "ssd_scan_mma_kernel", "ssd_scan_kernel")
 
 
 def profile_step(torch, what, fn):
@@ -1348,8 +1348,9 @@ def full_model_phase(torch, params, cfg, prompts, device="cuda",
     if on_card:
         traced = profile_step(torch, "bf16 prefill", lambda: prefill_step(
             params16, {"tokens": prompts}, fresh_caches(cfg16)))
-        want = {"flash_fwd_mma_kernel": n_attn, "flash_fwd_kernel": 0,
-                "ssd_scan_mma_kernel": n_ssd, "ssd_scan_kernel": 0}
+        want = {"flash_fwd_wgmma_kernel": n_attn, "flash_fwd_mma_kernel": 0,
+                "flash_fwd_kernel": 0, "ssd_scan_mma_kernel": n_ssd,
+                "ssd_scan_kernel": 0}
         if traced != want:
             fail(f"the traced prefill ran {traced}, expected {want}")
         profile_step(torch, "bf16 decode step", lambda: decode_step(
@@ -2723,7 +2724,7 @@ def serve_run(torch, cfg, params, batch, n_decode, src_len, want_flash,
               device, what, ranges):
     """A bf16 prefill of ``batch`` and ``n_decode`` greedy decode steps
     through the port's prefill / decode steps, with `flash_fwd`'s launches
-    counted over this run alone (``want_flash`` a prefill, all `.mma`, none
+    counted over this run alone (``want_flash`` a prefill, all `.wgmma`, none
     in decode), host times, peak memory, a profile by class of the prefill
     and of one decode step (kernels charged to ``ranges`` where they ran
     inside them), and the host syncs of one decode step."""
@@ -3729,7 +3730,8 @@ def mesh_serve_phase(torch, job=None, device="cuda", limit=600.0):
         if q["dispatch"] != want or not q["finite"]:
             fail(f"mesh qwen3-moe dispatched {q['dispatch']} (expected "
                  f"{want}), finite logits {q['finite']}")
-        if device == "cuda" and q["launches"]["flash_fwd.mma"] != n_layers:
+        if device == "cuda" and \
+                q["launches"]["flash_fwd.wgmma"] != n_layers:
             fail(f"mesh qwen3-moe launched {q['launches']}")
     log(f"[mesh] 4 gloo ranks on one card: wall {wall:.1f}s "
         f"({card_or_cpu(device)})")
@@ -4729,8 +4731,43 @@ def card_or_cpu(device):
     return card() if device == "cuda" else "cpu"
 
 
+def ptxas_summary(build_log, tag):
+    """What `ptxas -v` reported for each kernel whose mangled name holds
+    ``tag``: registers, spill bytes, and its warnings that wgmma products
+    were serialised (C7515), by the name's template arguments."""
+    out, cur = {}, None
+
+    def rec(name):
+        return out.setdefault(name.split(tag)[-1].split("EEEv")[0], {
+            "registers": None, "spill_stores": None, "spill_loads": None,
+            "serialized": 0})
+
+    for line in build_log.splitlines():
+        named = re.search(r"function '(\w+)'", line)
+        if "C7515" in line:
+            if named and tag in named.group(1):
+                rec(named.group(1))["serialized"] += 1
+            continue
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = m.group(1) if tag in m.group(1) else None
+        if cur is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec(cur)["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rec(cur)["spill_stores"], rec(cur)["spill_loads"] = \
+                map(int, m.groups())
+    return out
+
+
 def main():
     global LOG_FILE
+    t_main = time.perf_counter()
     if os.environ.get("PYTHONHASHSEED") != "0":
         env = dict(os.environ, PYTHONHASHSEED="0")
         os.execve(sys.executable,
@@ -4770,6 +4807,8 @@ def main():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
+    log("[build] flash_fwd_wgmma_kernel<T, boxes, k-steps> (ptxas -v): "
+        + json.dumps(ptxas_summary(info["log"], "flash_fwd_wgmma_kernel")))
 
     if mesh_only:
         t0 = time.perf_counter()
@@ -4808,7 +4847,9 @@ def main():
     torch.cuda.empty_cache()
     log(f"[time] reference phase {time.perf_counter() - t0:.1f}s")
     serve_launches = serve_full_phases(torch)
-    missing = [k for k, v in serve_launches.items() if v <= 0]
+    # bf16: flash on wgmma, the scan on mma.sync (`route_counts`)
+    missing = [k for k in ("flash_fwd", "flash_fwd.wgmma", "ssd_scan",
+                           "ssd_scan.mma") if serve_launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the serve path: {missing}")
     launches.update(serve_launches)
@@ -4838,7 +4879,7 @@ def main():
     slice_launches = moe_encdec_phases(torch)
     reference_tree.cache_clear()        # the last reference file's weights
     for name, counts in slice_launches.items():
-        if counts["flash_fwd"] <= 0:
+        if counts["flash_fwd.wgmma"] <= 0:
             fail(f"flash_fwd never launched on the {name} path")
 
     # ---- the torrent ring across ranks (the tables ran beside the build) -- #
@@ -4855,7 +4896,7 @@ def main():
     mesh_launches = mesh_serve_phase(torch)
     log(f"[time] mesh-serve phase {time.perf_counter() - t0:.1f}s")
     for name in ("zamba2", "moe", "encdec"):
-        if mesh_launches[name]["flash_fwd.mma"] <= 0:
+        if mesh_launches[name]["flash_fwd.wgmma"] <= 0:
             fail(f"flash_fwd never launched on the mesh's {name} path")
     if mesh_launches["zamba2"]["ssd_scan.mma"] <= 0:
         fail("ssd_scan never launched on the mesh's zamba2 path")
@@ -4865,10 +4906,10 @@ def main():
     t0 = time.perf_counter()
     mesh_train = mesh_train_phase(torch)
     log(f"[time] mesh-train phase {time.perf_counter() - t0:.1f}s")
-    for k in ("flash_fwd.mma", "ssd_scan.mma"):
+    for k in ("flash_fwd.wgmma", "ssd_scan.mma"):
         if mesh_train["mesh"][k] <= 0:
             fail(f"{k} never launched on the mesh train path")
-    if mesh_train["moe"]["launches"]["flash_fwd.mma"] <= 0:
+    if mesh_train["moe"]["launches"]["flash_fwd.wgmma"] <= 0:
         fail("flash_fwd never launched on the qwen3-moe train path")
 
     # ---- the launch toolchain: the timed steps on meta tensors ----------- #
@@ -4890,6 +4931,15 @@ def main():
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "v1_ms": rec.get("v1_ms"),
+            # flash: the mma.sync kernel that the wgmma one replaced, in
+            # turns with it
+            "v2_ms": rec.get("v2_ms"),
+            # every timed shape of the kernel (flash: the six main-path
+            # shapes, each in turns with v2 and beside SDPA)
+            "shapes": [{k: r.get(k) for k in (
+                "case", "ms", "v1_ms", "v2_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
+                for r in records[name] if "ms" in r],
             "route_launches": {k: v for k, v in launches.items()
                                if k.startswith(name + ".")
                                or (k == name and k != kernel)},
@@ -4907,9 +4957,9 @@ def main():
             "mesh_launches": sum(mesh_launches[m].get(kernel, 0)
                                  for m in ("zamba2", "moe", "encdec")),
             # the timed local-head shapes of a (2, 2) mesh rank
-            "mesh_shapes": [{k: r[k] for k in (
+            "mesh_shapes": [{k: r.get(k) for k in (
                 "case", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "v1_ms", "max_abs_err")}
+                "library_ms", "v1_ms", "v2_ms", "max_abs_err")}
                 for r in records[name]
                 if "mesh rank" in r["case"] and "ms" in r],
             # rank 0 of the (2, 2) train mesh: the bf16 13-layer zamba2's
@@ -4920,11 +4970,12 @@ def main():
                 mesh_train["per_step"].get(kernel, 0),
             "moe_train_launches": mesh_train["moe"]["launches"].get(
                 kernel, 0),
-            "mesh_train_shapes": [{k: r[k] for k in (
+            "mesh_train_shapes": [{k: r.get(k) for k in (
                 "case", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "v1_ms", "max_abs_err")}
+                "library_ms", "v1_ms", "v2_ms", "max_abs_err")}
                 for r in records[name]
                 if "mesh train rank" in r["case"] and "ms" in r]})
+    log(f"[time] whole script {time.perf_counter() - t_main:.1f}s")
     print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

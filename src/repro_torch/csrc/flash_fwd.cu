@@ -1,11 +1,14 @@
 // Hopper (sm_90a) kernel for the FlashAttention-2 forward on f32 inputs
 // (repro_torch/kernels/flash_attention/kernel.py), on the CUDA cores, and
 // the C entry points, loaded with ctypes: `flash_fwd_launch` sends f32 here
-// and bf16 / f16 to the tensor-core kernel (flash_fwd_mma.cu);
-// `flash_fwd_v1_launch` runs this kernel at any dtype, to time the two
-// against each other.  A launch runs on the caller's stream, allocates
-// nothing, and returns cudaGetLastError() so a refused launch is reported
-// at the call site.
+// and bf16 / f16 to a tensor-core kernel, by a rule decided before the
+// launch (`wgmma_route`): wgmma and TMA (flash_fwd_wgmma.cu) for a head
+// dim that is a multiple of 8 up to 128 with 16-byte aligned tensors,
+// else mma.sync (flash_fwd_mma.cu); `flash_fwd_v1_launch` runs this
+// kernel at any dtype and `flash_fwd_v2_launch` the mma.sync kernel at any
+// 16-bit shape, to time them against the kernels that replaced them.  A
+// launch runs on the caller's stream, allocates nothing, and returns
+// cudaGetLastError() so a refused launch is reported at the call site.
 //
 // flash_fwd replaces src/repro/kernels/flash_attention/kernel.py
 // flash_fwd_pallas / _fwd_kernel: out = softmax(q k^T * scale + mask) v
@@ -36,6 +39,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -271,15 +275,32 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 
 }  // namespace
 
-// the tensor-core route for bf16 and f16 (flash_fwd_mma.cu)
+// the tensor-core routes for bf16 and f16: wgmma and TMA
+// (flash_fwd_wgmma.cu), mma.sync (flash_fwd_mma.cu)
+int flash_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                    void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                    int D, int causal, int window, int dtype,
+                    cudaStream_t st);
 int flash_fwd_mma(const void* q, const void* k, const void* v, void* out,
                   void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
                   int causal, int window, int dtype, cudaStream_t st);
 
+// The rule of kernel.py's flash_route: a head dim that a tensor map and
+// wgmma take (a multiple of 8 up to 128) and base pointers that a tensor
+// map takes (16-byte aligned).
+static bool wgmma_route(int D, const void* q, const void* k, const void* v,
+                        const void* out) {
+  if (D % 8 != 0 || D > 128) return false;
+  for (const void* p : {q, k, v, out})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 extern "C" {
 
 // dtype: 0 f32, 1 bf16, 2 f16 (q, k, v and out); lse is f32.  f32 runs
-// the CUDA-core kernel above, bf16 and f16 the tensor-core kernel.
+// the CUDA-core kernel above; bf16 and f16 the wgmma kernel where
+// wgmma_route holds, else the mma.sync kernel.
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                      void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
                      int D, int causal, int window, int dtype,
@@ -288,12 +309,26 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
   if (dtype == 0)
     return launch<float>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D, causal,
                          window, st);
+  if (wgmma_route(D, q, k, v, out))
+    return flash_fwd_wgmma(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
+                           causal, window, dtype, st);
   return flash_fwd_mma(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D, causal,
                        window, dtype, st);
 }
 
+// The mma.sync kernel (flash_fwd_mma.cu) at any 16-bit shape: the
+// yardstick that the wgmma kernel is timed against.  Nothing on a model
+// path calls it.
+int flash_fwd_v2_launch(const void* q, const void* k, const void* v,
+                        void* out, void* lse, int B, int Sq, int Skv, int Hq,
+                        int Hkv, int D, int causal, int window, int dtype,
+                        void* stream) {
+  return flash_fwd_mma(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D, causal,
+                       window, dtype, (cudaStream_t)stream);
+}
+
 // The CUDA-core kernel above at any dtype: the yardstick that the
-// tensor-core route is timed against.  Nothing on the serve path calls it.
+// tensor-core routes are timed against.  Nothing on a model path calls it.
 int flash_fwd_v1_launch(const void* q, const void* k, const void* v,
                         void* out, void* lse, int B, int Sq, int Skv, int Hq,
                         int Hkv, int D, int causal, int window, int dtype,

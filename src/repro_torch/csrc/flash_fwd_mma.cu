@@ -1,7 +1,11 @@
-// Hopper (sm_90a) tensor-core kernel for the FlashAttention-2 forward on
-// bf16 and f16 inputs (repro_torch/kernels/flash_attention/kernel.py).
-// `flash_fwd_launch` (flash_fwd.cu) sends dtypes 1 and 2 here and f32 to
-// the CUDA-core kernel there; this file has no C entry point of its own.
+// Tensor-core kernel (mma.sync, sm_80's instruction set, built for
+// sm_90a) for the FlashAttention-2 forward on bf16 and f16 inputs
+// (repro_torch/kernels/flash_attention/kernel.py, route `flash_fwd.mma`).
+// `flash_fwd_launch` (flash_fwd.cu) sends here the 16-bit inputs that the
+// wgmma kernel (flash_fwd_wgmma.cu) does not take: a head dim that is not
+// a multiple of 8 or passes 128 (gemma3's 240), or a base pointer off 16
+// bytes; `flash_fwd_v2_launch` runs it at any 16-bit shape, to time it
+// against the wgmma kernel.  This file has no C entry point of its own.
 //
 // flash_fwd replaces src/repro/kernels/flash_attention/kernel.py
 // flash_fwd_pallas / _fwd_kernel: out = softmax(q k^T * scale + mask) v
@@ -42,7 +46,8 @@
 //   -1e29, as the plain version's do.
 // - The output tile is staged through the q tile's shared memory and
 //   written with the same wide copies.
-// wgmma with TMA and warp specialisation is the next step.
+// wgmma with TMA and warp specialisation is flash_fwd_wgmma.cu (v3), which
+// takes every head dim the card serves or trains (64, 112, 128).
 
 #include <cmath>
 #include <cstdint>

@@ -2,8 +2,10 @@
 
 The sources under `csrc/` (`swarm_kernels.cu`; `flash_fwd.cu` and
 `ssd_scan.cu`, the CUDA-core kernels and the C entry points;
-`flash_fwd_mma.cu`, the tensor-core flash kernel for bf16 and f16, and
-`ssd_scan_mma.cu`, the tensor-core SSD kernel for bf16, with
+`flash_fwd_wgmma.cu`, the flash kernel on wgmma and TMA for bf16 and f16
+at head dims that a tensor map takes, with `wgmma_sm90.cuh`;
+`flash_fwd_mma.cu`, the mma.sync flash kernel for the other 16-bit
+shapes, and `ssd_scan_mma.cu`, the tensor-core SSD kernel for bf16, with
 `mma_sm90.cuh`) are compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc`
 per source all started together, and linked into one shared library with
 a plain C interface under ``build/repro_torch/`` at the repository root,
@@ -27,8 +29,10 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("swarm_kernels.cu", "flash_fwd.cu", "ssd_scan.cu",
-                 "flash_fwd_mma.cu", "ssd_scan_mma.cu"))
-HEADERS = (_PKG / "csrc" / "mma_sm90.cuh",)
+                 "flash_fwd_wgmma.cu", "flash_fwd_mma.cu",
+                 "ssd_scan_mma.cu"))
+HEADERS = tuple(_PKG / "csrc" / name for name in
+                ("mma_sm90.cuh", "wgmma_sm90.cuh"))
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,6 +59,7 @@ _SIGNATURES = {
                         _I, _I, _P),
 }
 _SIGNATURES["flash_fwd_v1_launch"] = _SIGNATURES["flash_fwd_launch"]
+_SIGNATURES["flash_fwd_v2_launch"] = _SIGNATURES["flash_fwd_launch"]
 _SIGNATURES["ssd_scan_v1_launch"] = _SIGNATURES["ssd_scan_launch"]
 
 
@@ -86,8 +91,11 @@ def build(nvcc: Optional[str] = None,
     out_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / f"librepro_torch_kernels_{_digest()}.so"
+    log_file = lib.with_suffix(".log")     # nvcc's and ptxas's output
     if lib.exists():
-        BUILD_INFO.update(seconds=0.0, path=str(lib), log="cached")
+        BUILD_INFO.update(seconds=0.0, path=str(lib),
+                          log=log_file.read_text() if log_file.exists()
+                          else "cached")
         return lib
     tag = f"{_digest()}.{os.getpid()}"
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in SOURCES]
@@ -109,12 +117,14 @@ def build(nvcc: Optional[str] = None,
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stdout}\n{link.stderr}")
+        log = "\n".join(out.strip() for out in logs)
+        log_file.write_text(log)
         os.replace(tmp, lib)
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(lib),
-                      log="\n".join(out.strip() for out in logs))
+                      log=log)
     return lib
 
 

@@ -351,18 +351,29 @@ def _tol(dtype, f32):
     return f32 if dtype == torch.float32 else 2e-2
 
 
-def _flash_case(fk, rs, B, Sq, Skv, Hq, Hkv, D, causal, window, dtype):
+def _flash_case(fk, rs, B, Sq, Skv, Hq, Hkv, D, causal, window, dtype,
+                offset=0):
     """One flash_fwd launch against its plain version; the launch counts
-    show the route: bf16 / f16 on the tensor cores, f32 on the CUDA
-    cores."""
+    show the route: bf16 / f16 on wgmma where D is a multiple of 8 up to
+    128 and every tensor starts 16-byte aligned, else on mma.sync; f32 on
+    the CUDA cores.  ``offset`` starts q that many elements into its
+    allocation."""
     q, k, v = (G(rs.standard_normal(s).astype(np.float32)).to(dtype)
                for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    if offset:
+        q = torch.empty(q.numel() + offset, dtype=dtype,
+                        device=q.device)[offset:].view(q.shape).copy_(q)
     n0 = dict(fk.LAUNCHES)
     out, lse = fk.flash_fwd(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    mma = int(dtype != torch.float32)
-    assert fk.LAUNCHES == {"flash_fwd": n0["flash_fwd"] + 1,
-                           "flash_fwd.mma": n0["flash_fwd.mma"] + mma}
+    tensor_core = dtype != torch.float32
+    wgmma = tensor_core and D % 8 == 0 and D <= 128 and \
+        q.data_ptr() % 16 == 0
+    assert fk.LAUNCHES == {
+        "flash_fwd": n0["flash_fwd"] + 1,
+        "flash_fwd.wgmma": n0["flash_fwd.wgmma"] + int(wgmma),
+        "flash_fwd.mma": n0["flash_fwd.mma"] + int(tensor_core
+                                                   and not wgmma)}
     want, wlse = fk.flash_fwd_plain(q, k, v, causal=causal, window=window)
     case = (B, Sq, Skv, Hq, Hkv, D, causal, window, dtype)
     assert out.dtype == dtype and lse.dtype == torch.float32
@@ -398,10 +409,18 @@ def test_flash_fwd_kernel_matches_plain(mk, seed):
                     _F16[it % 3])
 
 
-# every edge the tensor-core route pads or masks, and the serve shape
+# every edge the tensor-core routes pad or mask, and the serve shapes:
+# wgmma at D 8 / 24 / 64 / 112 / 128 (the last box half zero at 8..56 and
+# 112), ragged S past a 128-row tile, GQA, a window inside a tile, Sq !=
+# Skv with a wholly masked tail; mma.sync at D 240 / 20 / 36 and at a q
+# that starts 2 bytes off 16
 FLASH_EDGES = [
     # B, Sq, Skv, Hq, Hkv, D, causal, window, dtype
     (2, 130, 130, 4, 2, 8, True, 0, torch.bfloat16),
+    (1, 300, 150, 4, 1, 24, True, 40, torch.float16),
+    (1, 129, 300, 8, 2, 128, False, 100, torch.bfloat16),
+    (4, 2048, 2048, 32, 4, 128, True, 0, torch.bfloat16),
+    (4, 2048, 2048, 16, 16, 64, False, 0, torch.bfloat16),
     (1, 100, 100, 2, 2, 24, True, 0, torch.float16),
     (1, 77, 77, 2, 1, 240, True, 0, torch.bfloat16),
     (2, 200, 200, 8, 2, 112, True, 0, torch.float16),
@@ -417,6 +436,16 @@ FLASH_EDGES = [
 def test_flash_fwd_kernel_edges(mk, case):
     fk, _ = mk
     _flash_case(fk, np.random.default_rng(7), *case)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_fwd_misaligned_q_takes_mma(mk, dtype):
+    """A q whose storage starts one element past 16 bytes is refused by a
+    tensor map: the launch takes mma.sync, decided before it, and agrees
+    with the plain version."""
+    fk, _ = mk
+    _flash_case(fk, np.random.default_rng(9), 2, 200, 200, 4, 2, 112, True,
+                0, dtype, offset=1)
 
 
 def _ssd_case(ssk, rs, B, S, H, P, G_, N, chunk, dtype):
