@@ -43,18 +43,20 @@
 3. serve slice: holds `flash_fwd` and `ssd_scan` against their plain
    versions (the reference's kernel-test cases and the serve path's
    shapes: f32 on the CUDA-core kernels, bf16 on the tensor-core ones,
-   flash in f16 too, and an f16 scan whose M passes f16's range, on the
-   CUDA cores), times the scan at the serve shape against its CUDA-core
-   kernel in turns (v1, v2, v2, v1) and flash's wgmma kernel at the six
-   main-path shapes against its mma.sync kernel in turns (v2, v3, v3,
-   v2), beside `scaled_dot_product_attention`; runs
+   flash in f16 too, an f16 scan whose M passes f16's range, on the
+   CUDA cores, and the scan's wgmma edges: two rounds of its cluster,
+   S = 1, G = 2, P = N = 128, and a misaligned x on mma.sync), times the
+   wgmma kernels against their mma.sync kernels in turns (v2, v3, v3,
+   v2): the scan at the four main-path shapes (zamba2's prefill, the
+   train step, a (2, 2) serve and train rank), flash at its six beside
+   `scaled_dot_product_attention`; runs
    zamba2-7b at full width cut to 7 layers in f32 against
    `src/repro_torch/reference_serve.json` (the reference package's
    prefill and decode logits); drives zamba2-7b at full depth and width in
    bf16 (B=4, S=2048 prefill, 32 decode steps) through `make_prefill_step`
    / `make_decode_step`, checks that each prefill launched `ssd_scan` 81
    and `flash_fwd` 13 times, all on the tensor-core routes (`.wgmma`
-   for flash: by the wrappers' counts and by the kernel names in a
+   for both: by the wrappers' counts and by the kernel names in a
    profiler trace), and
    holds its logits to the plain torch
    paths; serves 4 requests through `ServingEngine` on the f32 model and
@@ -64,7 +66,7 @@
    one train step's loss and gradients through the kernels against the
    plain torch paths in f32 and in bf16 (`compare_routes`), with
    `ssd_scan` launched 26 and `flash_fwd` 4 times (forward and
-   recompute; `.wgmma` and `.mma` in bf16) and no zero-gradient leaf;
+   recompute; all `.wgmma` in bf16) and no zero-gradient leaf;
    each layer's
    bf16 gradients on the same input through both routes
    (`block_grads_check`); the f32 step under remat "dots" against
@@ -191,14 +193,15 @@ SOURCES = {
     "island_has": "src/repro_torch/csrc/swarm_kernels.cu",
     "match_requests": "src/repro_torch/csrc/swarm_kernels.cu",
     "flash_fwd": "src/repro_torch/csrc/flash_fwd_wgmma.cu",
-    "ssd_scan": "src/repro_torch/csrc/ssd_scan_mma.cu",
+    "ssd_scan": "src/repro_torch/csrc/ssd_scan_wgmma.cu",
 }
 # the route each kernel of the line ran on its main path: bf16 serving
-# takes the tensor-core kernels (flash on wgmma and TMA, the SSD scan on
-# mma.sync), the P4P cost rows one thread-block cluster
+# and training take the tensor-core kernels (flash and the SSD scan on
+# wgmma and TMA, the scan's state chained across a thread-block cluster),
+# the P4P cost rows one thread-block cluster
 ROUTES = {"rarest_keys": "cuda", "island_has": "cuda-cluster",
           "match_requests": "cuda", "flash_fwd": "cuda-wgmma",
-          "ssd_scan": "cuda-mma"}
+          "ssd_scan": "cuda-wgmma"}
 REPLACES = {
     "rarest_keys": "src/repro/core/swarm_kernels.py:112",
     "island_has": "src/repro/core/swarm_kernels.py:221",
@@ -812,11 +815,11 @@ def model_kernel_phase(torch):
             f"(tolerance {tol:.3g}{' of max ' + f'{scale:.3f}' if relative else ''})")
 
     def timed(name, kernel, prev, plain, n_bytes, n_ops, peak, library=None,
-              turn=("v1", "v2")):
+              turn=("v2", "v3")):
         """Device ms of the kernel and of the version it replaced,
-        ``prev`` (the scan's CUDA-core v1, flash's mma.sync v2; named by
-        ``turn``), in turns (prev, kernel, kernel, prev), each the mean of
-        its two turns (the kernel alone, twice, where ``prev`` is None)."""
+        ``prev`` (flash's and the scan's mma.sync v2; named by ``turn``), in
+        turns (prev, kernel, kernel, prev), each the mean of its two turns
+        (the kernel alone, twice, where ``prev`` is None)."""
         turns = [device_ms(f, reps=10, inner=3)
                  for f in ((kernel,) * 2 if prev is None
                            else (prev, kernel, kernel, prev))]
@@ -920,20 +923,40 @@ def model_kernel_phase(torch):
         del q, k, v, out, lse, want, wlse
 
     # ---- ssd_scan -------------------------------------------------------- #
-    def ssd_inputs(B, S, H, P, G, N, dtype):
+    def ssd_inputs(B, S, H, P, G, N, dtype, offset=0):
+        """x (``offset`` elements into its allocation), dt, A, B, C."""
         x = up((B, S, H, P), dtype)
+        if offset:
+            x = torch.empty(x.numel() + offset, dtype=dtype, device="cuda")[
+                offset:].view(x.shape).copy_(x)
         dt = torch.nn.functional.softplus(up((B, S, H), torch.float32))
         A = -torch.exp(up((H,), torch.float32, 0.3))
         return (x, dt.contiguous(), A.contiguous(),
                 up((B, S, G, N), dtype, 0.5), up((B, S, G, N), dtype, 0.5))
 
-    for B, S, H, P, G, N, chunk in SSD_CASES:
-        args = ssd_inputs(B, S, H, P, G, N, torch.float32)
+    def took_ssd_route(n0, route, case):
+        """Fail unless the one launch since ``n0`` took ``route``."""
+        got = {k: ssk.LAUNCHES[k] - n0[k] for k in ssk.LAUNCHES}
+        want = {"ssd_scan": 1, "ssd_scan.wgmma": int(route == "wgmma"),
+                "ssd_scan.mma": int(route == "mma")}
+        if got != want:
+            fail(f"ssd_scan [{case}] launched {got}, expected the {route} "
+                 "route")
+
+    def ssd_case(B, S, H, P, G, N, chunk, dtype, route, case, tol,
+                 offset=0, relative=True):
+        args = ssd_inputs(B, S, H, P, G, N, dtype, offset)
+        n0 = dict(ssk.LAUNCHES)
         y, fin = ssk.ssd_scan(*args, chunk=chunk)
+        took_ssd_route(n0, route, case)
         wy, wfin = ssk.ssd_scan_plain(*args, chunk=chunk)
-        case = f"{(B, S, H, P, G, N, chunk)} f32"
-        check("ssd_scan", case, y, wy, 1e-3, "y")
-        check("ssd_scan", case, fin, wfin, 1e-3, "state")
+        check("ssd_scan", case, y, wy, tol, "y", relative=relative)
+        check("ssd_scan", case, fin, wfin, tol, "state", relative=relative)
+        return args, y, fin
+
+    for B, S, H, P, G, N, chunk in SSD_CASES:
+        ssd_case(B, S, H, P, G, N, chunk, torch.float32, "v1",
+                 f"{(B, S, H, P, G, N, chunk)} f32", 1e-3, relative=False)
     # f16 whose M = C B^T exp(segsum) dt passes f16's 65504 inside a chunk
     # while y and the state fit: f16 takes the CUDA-core kernel, M in f32
     rs16 = np.random.default_rng(65504)
@@ -949,47 +972,43 @@ def model_kernel_phase(torch):
             f32(40 + rs16.random((B, S, 1, N))).half())
     n0 = dict(ssk.LAUNCHES)
     y, fin = ssk.ssd_scan(*args, chunk=chunk)
-    if ssk.LAUNCHES["ssd_scan.mma"] != n0["ssd_scan.mma"]:
-        fail("ssd_scan took the tensor-core route for f16")
-    wy, wfin = ssk.ssd_scan_plain(*args, chunk=chunk)
     case = f"{(B, S, H, P, 1, N, chunk)} f16, |M| > 65504"
-    check("ssd_scan", case, y, wy, 1e-2, "y", relative=True)
-    check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
-    B, S, H, P, G, N, chunk = 4, 2048, 112, 64, 1, 64, 256
-    args = ssd_inputs(B, S, H, P, G, N, torch.bfloat16)
-    y, fin = ssk.ssd_scan(*args, chunk=chunk)
+    took_ssd_route(n0, "v1", case)
     wy, wfin = ssk.ssd_scan_plain(*args, chunk=chunk)
-    case = f"B={B} S={S} H={H} P={P} G={G} N={N} chunk={chunk} bf16"
     check("ssd_scan", case, y, wy, 1e-2, "y", relative=True)
     check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
-    timed("ssd_scan",
-          lambda: ssk.ssd_scan(*args, chunk=chunk),
-          lambda: ssk.ssd_scan_v1(*args, chunk=chunk),
-          lambda: ssk.ssd_scan_plain(*args, chunk=chunk),
-          sum(t.numel() * t.element_size() for t in (*args, y, fin)),
-          ssd_ops(B, S, H, P, N, chunk), BF16_OPS_PER_S)
-    args = ssd_inputs(2, S, H, P, G, N, torch.bfloat16)
-    y, fin = ssk.ssd_scan(*args, chunk=chunk)
-    wy, wfin = ssk.ssd_scan_plain(*args, chunk=chunk)
-    case = f"B=2 S={S} H={H} P={P} G={G} N={N} chunk={chunk} bf16 (train)"
-    check("ssd_scan", case, y, wy, 1e-2, "y", relative=True)
-    check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
-    # a rank of the (2, 2) mesh: B=4 over data, 112 SSM heads over model;
-    # a train rank: B=2 over data
-    for Bm, what in ((2, "a mesh rank"), (1, "a mesh train rank")):
-        args = ssd_inputs(Bm, S, H // 2, P, G, N, torch.bfloat16)
-        y, fin = ssk.ssd_scan(*args, chunk=chunk)
-        wy, wfin = ssk.ssd_scan_plain(*args, chunk=chunk)
-        case = (f"B={Bm} S={S} H={H // 2} P={P} G={G} N={N} chunk={chunk} "
-                f"bf16 ({what})")
-        check("ssd_scan", case, y, wy, 1e-2, "y", relative=True)
-        check("ssd_scan", case, fin, wfin, 1e-2, "state", relative=True)
+    # bf16 edges of the wgmma kernel: two rounds of its cluster (S = 4096),
+    # S = 1, G = 2 on 5 chunks (3 spare slots), P = N = 128; then an x
+    # 2 bytes off 16, which a tensor map refuses: mma.sync
+    for B, S, H, P, G, N, chunk, route, what in (
+            (1, 4096, 4, 64, 1, 64, 256, "wgmma", "two rounds"),
+            (1, 1, 2, 64, 1, 64, 256, "wgmma", "S = 1"),
+            (2, 320, 4, 32, 2, 16, 64, "wgmma", "G = 2, 5 chunks"),
+            (1, 300, 2, 128, 1, 128, 128, "wgmma", "P = N = 128"),
+            (2, 300, 4, 64, 1, 64, 256, "mma", "x off 16 bytes")):
+        ssd_case(B, S, H, P, G, N, chunk, torch.bfloat16, route,
+                 f"{(B, S, H, P, G, N, chunk)} bf16 ({what})", 1e-2,
+                 offset=int(route == "mma"))
+    # the main paths' shapes, each on wgmma against its plain version and
+    # timed in turns against mma.sync (`ssd_scan_v2`; the first is the one
+    # the kernels line reports): zamba2's prefill, the 13-layer train
+    # step (B=2), a (2, 2) serve rank (B=4 over data, 112 SSM heads over
+    # model) and a (2, 2) train rank (B=2 over data)
+    S, P, G, N, chunk = 2048, 64, 1, 64, 256
+    for B, H, what in ((4, 112, ""), (2, 112, " (train)"),
+                       (2, 56, " (a mesh rank)"),
+                       (1, 56, " (a mesh train rank)")):
+        case = f"B={B} S={S} H={H} P={P} G={G} N={N} chunk={chunk} bf16{what}"
+        args, y, fin = ssd_case(B, S, H, P, G, N, chunk, torch.bfloat16,
+                                "wgmma", case, 1e-2)
         timed("ssd_scan",
               lambda: ssk.ssd_scan(*args, chunk=chunk),
-              lambda: ssk.ssd_scan_v1(*args, chunk=chunk),
+              lambda: ssk.ssd_scan_v2(*args, chunk=chunk),
               lambda: ssk.ssd_scan_plain(*args, chunk=chunk),
               sum(t.numel() * t.element_size() for t in (*args, y, fin)),
-              ssd_ops(Bm, S, H // 2, P, N, chunk), BF16_OPS_PER_S)
+              ssd_ops(B, S, H, P, N, chunk), BF16_OPS_PER_S,
+              turn=("v2", "v3"))
+        del args, y, fin
     return records
 
 
@@ -1007,12 +1026,14 @@ def reset_model_launches():
     ssk.reset_launches()
 
 
-def route_counts(n_flash, n_ssd, n_flash_tc, n_ssd_mma):
+def route_counts(n_flash, n_ssd, n_flash_tc, n_ssd_tc):
     """The launch counts a run should show: ``n_flash_tc`` of the flash
-    launches on the tensor cores, which on every main path is the wgmma
-    route (bf16 at head dims 64, 112 and 128), none on mma.sync."""
+    launches and ``n_ssd_tc`` of the scan's on the tensor cores, which on
+    every main path is the wgmma route (bf16 flash at head dims 64, 112
+    and 128, the bf16 scan at P = N = 64, chunk 256), none on mma.sync."""
     return {"flash_fwd": n_flash, "flash_fwd.wgmma": n_flash_tc,
-            "flash_fwd.mma": 0, "ssd_scan": n_ssd, "ssd_scan.mma": n_ssd_mma}
+            "flash_fwd.mma": 0, "ssd_scan": n_ssd,
+            "ssd_scan.wgmma": n_ssd_tc, "ssd_scan.mma": 0}
 
 
 def layer_counts(cfg):
@@ -1148,10 +1169,11 @@ def sync(torch, device):
         torch.cuda.synchronize()
 
 
-# the kernels' names in a device trace: flash on wgmma, on mma.sync and on
-# the CUDA cores, the scan on the tensor and the CUDA cores
+# the kernels' names in a device trace: flash and the scan on wgmma, on
+# mma.sync and on the CUDA cores
 MODEL_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel",
-                 "flash_fwd_kernel", "ssd_scan_mma_kernel", "ssd_scan_kernel")
+                 "flash_fwd_kernel", "ssd_scan_wgmma_kernel",
+                 "ssd_scan_mma_kernel", "ssd_scan_kernel")
 
 
 def profile_step(torch, what, fn):
@@ -1349,8 +1371,8 @@ def full_model_phase(torch, params, cfg, prompts, device="cuda",
         traced = profile_step(torch, "bf16 prefill", lambda: prefill_step(
             params16, {"tokens": prompts}, fresh_caches(cfg16)))
         want = {"flash_fwd_wgmma_kernel": n_attn, "flash_fwd_mma_kernel": 0,
-                "flash_fwd_kernel": 0, "ssd_scan_mma_kernel": n_ssd,
-                "ssd_scan_kernel": 0}
+                "flash_fwd_kernel": 0, "ssd_scan_wgmma_kernel": n_ssd,
+                "ssd_scan_mma_kernel": 0, "ssd_scan_kernel": 0}
         if traced != want:
             fail(f"the traced prefill ran {traced}, expected {want}")
         profile_step(torch, "bf16 decode step", lambda: decode_step(
@@ -4064,6 +4086,11 @@ def mesh_train_rank(rank, world, init_file, backend, device, job, results):
     """One rank of `mesh_train_phase` (a spawned process): its readings,
     or its traceback, on ``results``."""
     import traceback
+    # four ranks share one card near its capacity at d's int8 step (~17
+    # GiB each): segments that grow in place keep a rank's cache from
+    # fragmenting into more than it needs (a run ran out of memory there)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     try:
         results.put((rank, "ok", _mesh_train_rank(rank, world, init_file,
                                                   backend, device, job)))
@@ -4809,6 +4836,8 @@ def main():
             log(f"[build] {line.strip()}")
     log("[build] flash_fwd_wgmma_kernel<T, boxes, k-steps> (ptxas -v): "
         + json.dumps(ptxas_summary(info["log"], "flash_fwd_wgmma_kernel")))
+    log("[build] ssd_scan_wgmma_kernel<P boxes, N boxes> (ptxas -v): "
+        + json.dumps(ptxas_summary(info["log"], "ssd_scan_wgmma_kernel")))
 
     if mesh_only:
         t0 = time.perf_counter()
@@ -4847,9 +4876,9 @@ def main():
     torch.cuda.empty_cache()
     log(f"[time] reference phase {time.perf_counter() - t0:.1f}s")
     serve_launches = serve_full_phases(torch)
-    # bf16: flash on wgmma, the scan on mma.sync (`route_counts`)
+    # bf16: flash and the scan on wgmma (`route_counts`)
     missing = [k for k in ("flash_fwd", "flash_fwd.wgmma", "ssd_scan",
-                           "ssd_scan.mma") if serve_launches[k] <= 0]
+                           "ssd_scan.wgmma") if serve_launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the serve path: {missing}")
     launches.update(serve_launches)
@@ -4898,7 +4927,7 @@ def main():
     for name in ("zamba2", "moe", "encdec"):
         if mesh_launches[name]["flash_fwd.wgmma"] <= 0:
             fail(f"flash_fwd never launched on the mesh's {name} path")
-    if mesh_launches["zamba2"]["ssd_scan.mma"] <= 0:
+    if mesh_launches["zamba2"]["ssd_scan.wgmma"] <= 0:
         fail("ssd_scan never launched on the mesh's zamba2 path")
 
     # ---- training over a (data, model) mesh ------------------------------ #
@@ -4906,7 +4935,7 @@ def main():
     t0 = time.perf_counter()
     mesh_train = mesh_train_phase(torch)
     log(f"[time] mesh-train phase {time.perf_counter() - t0:.1f}s")
-    for k in ("flash_fwd.wgmma", "ssd_scan.mma"):
+    for k in ("flash_fwd.wgmma", "ssd_scan.wgmma"):
         if mesh_train["mesh"][k] <= 0:
             fail(f"{k} never launched on the mesh train path")
     if mesh_train["moe"]["launches"]["flash_fwd.wgmma"] <= 0:

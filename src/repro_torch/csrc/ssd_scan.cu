@@ -1,10 +1,13 @@
 // Hopper (sm_90a) kernel for the Mamba2 SSD chunked scan on f32 inputs
 // (repro_torch/kernels/ssd/kernel.py), on the CUDA cores, and the C entry
 // points, loaded with ctypes: `ssd_scan_launch` sends f32 and f16 here and
-// bf16 to the tensor-core kernel (ssd_scan_mma.cu); `ssd_scan_v1_launch`
-// runs this kernel at any dtype, to time the two against each other.  A
-// launch runs on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() so a refused launch is reported at the call site.
+// bf16 to a tensor-core kernel, wgmma and TMA (ssd_scan_wgmma.cu) where
+// its shape rule holds, else mma.sync (ssd_scan_mma.cu);
+// `ssd_scan_v2_launch` runs the mma.sync kernel at any bf16 shape and
+// `ssd_scan_v1_launch` this kernel at any dtype, to time the kernels
+// against each other.  A launch runs on the caller's stream, allocates
+// nothing, and returns cudaGetLastError() so a refused launch is reported
+// at the call site.
 //
 // ssd_scan replaces src/repro/kernels/ssd/kernel.py ssd_pallas /
 // _ssd_kernel.  With cum the inclusive cumsum of dt*A over a chunk of L
@@ -34,9 +37,11 @@
 // contribution), so a ragged final chunk leaves the reference's state.
 //
 // Occupancy: one block per (batch, head) is 112 blocks at B=1 for 132 SMs
-// and 448 at B=4 (the tensor-core kernel splits P across blocks).
+// and 448 at B=4 (the mma.sync kernel splits P across blocks, the wgmma
+// kernel runs one block a chunk).
 
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -320,18 +325,36 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
 
 }  // namespace
 
-// the tensor-core route for bf16 (ssd_scan_mma.cu)
+// the tensor-core routes for bf16: wgmma and TMA (ssd_scan_wgmma.cu),
+// mma.sync (ssd_scan_mma.cu)
+int ssd_scan_wgmma_chunk(int P, int N, int S, int L);
+int ssd_scan_wgmma(const void* x, const void* dt, const void* A,
+                   const void* Bm, const void* Cm, void* y, void* fin, int B,
+                   int S, int H, int P, int G, int N, int L,
+                   cudaStream_t st);
 int ssd_scan_mma(const void* x, const void* dt, const void* A, const void* Bm,
                  const void* Cm, void* y, void* fin, int B, int S, int H,
                  int P, int G, int N, int L, cudaStream_t st);
 
+// The rule of kernel.py's ssd_route: a shape the wgmma kernel takes
+// (ssd_scan_wgmma_chunk) and x, Bm, Cm and y 16-byte aligned, what a
+// tensor map takes.
+static bool wgmma_route(int P, int N, int S, int L, const void* x,
+                        const void* Bm, const void* Cm, const void* y) {
+  if (ssd_scan_wgmma_chunk(P, N, S, L) == 0) return false;
+  for (const void* p : {x, Bm, Cm, y})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 extern "C" {
 
 // dtype: 0 f32, 1 bf16, 2 f16 (x, Bm, Cm and y); dt, A and fin are f32.
-// bf16 runs the tensor-core kernel; f32 and f16 the CUDA-core kernel
-// above, which keeps M = C B^T exp(segsum) dt in f32.  The tensor-core
-// kernel rounds M to the input dtype, and an f16 M overflows above 65504
-// where the reference's f32 M stays finite; bf16 keeps the f32 range.
+// bf16 runs the wgmma kernel where wgmma_route holds, else the mma.sync
+// kernel; f32 and f16 the CUDA-core kernel above, which keeps M = C B^T
+// exp(segsum) dt in f32.  The tensor-core kernels round M to the input
+// dtype, and an f16 M overflows above 65504 where the reference's f32 M
+// stays finite; bf16 keeps the f32 range.
 int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, void* y, void* fin,
                     int B, int S, int H, int P, int G, int N, int L,
@@ -341,6 +364,9 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
     case 0:
       return launch<float>(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L, st);
     case 1:
+      if (wgmma_route(P, N, S, L, x, Bm, Cm, y))
+        return ssd_scan_wgmma(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L,
+                              st);
       return ssd_scan_mma(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L, st);
     case 2:
       return launch<__half>(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L,
@@ -348,6 +374,18 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The mma.sync kernel (ssd_scan_mma.cu) at any bf16 shape: the yardstick
+// that the wgmma kernel is timed against.  Nothing on a model path calls
+// it.
+int ssd_scan_v2_launch(const void* x, const void* dt, const void* A,
+                       const void* Bm, const void* Cm, void* y, void* fin,
+                       int B, int S, int H, int P, int G, int N, int L,
+                       int dtype, void* stream) {
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return ssd_scan_mma(x, dt, A, Bm, Cm, y, fin, B, S, H, P, G, N, L,
+                      (cudaStream_t)stream);
 }
 
 // The CUDA-core kernel above at any dtype: the yardstick that the

@@ -1,8 +1,10 @@
-// Inline-PTX wrappers for the Hopper-only kernels (flash_fwd_wgmma.cu):
-// mbarriers, the async-proxy fence, TMA tensor loads and stores, the
-// shared-memory matrix descriptors of wgmma, the warpgroup products
-// themselves with their fence / commit / wait, setmaxnreg and named
-// barriers.  Everything here needs sm_90a.
+// Inline-PTX wrappers for the Hopper-only kernels (flash_fwd_wgmma.cu,
+// ssd_scan_wgmma.cu): mbarriers, the async-proxy fence, TMA tensor loads
+// and stores, the shared-memory matrix descriptors of wgmma, the warpgroup
+// products themselves with their fence / commit / wait, setmaxnreg, named
+// barriers, and the thread-block cluster's distributed shared memory
+// (a peer block's address, stores and mbarrier arrivals there, waits and
+// fences at cluster scope, the cluster barrier).  Everything here needs sm_90a.
 //
 // wgmma m64nNk16 register layouts (PTX ISA, "Register fragment layout"),
 // warp w of the warpgroup, g = lane / 4, t = lane % 4:
@@ -28,6 +30,10 @@
 //     b"): 8 rows along the reduction SBO = 1024 bytes apart, the next 64
 //     output columns (the next box) LBO bytes apart; a k16 step is 16
 //     rows, +2048 bytes of start.
+//   tf32 operands are K-major only: a 128-byte row holds 32 of them, a k8
+//     step is +32 bytes of start, as a k16 step of 16-bit ones.  The A
+//     operand of a tf32 product from registers, warp w: a0 (16w + g, t)
+//     a1 (16w + g + 8, t)  a2 (16w + g, t + 4)  a3 (16w + g + 8, t + 4).
 #pragma once
 
 #include <cstdint>
@@ -88,6 +94,71 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // async-proxy ones (a TMA store of what it wrote)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- thread-block clusters ------------------------------------------- //
+// the address of `p`, in this block's shared memory, in the shared memory
+// of block `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// two floats into a peer block's shared memory (`addr` from peer_addr)
+__device__ __forceinline__ void st_peer_v2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(a), "f"(b)
+               : "memory");
+}
+
+// one float into a peer block's shared memory
+__device__ __forceinline__ void st_peer_f32(uint32_t addr, float a) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(a)
+               : "memory");
+}
+
+// arrive once on an mbarrier in a peer block's shared memory (`addr` from
+// peer_addr), releasing this thread's earlier writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          addr)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: the writes that peers released
+// before their arrivals (mbar_arrive_peer) are visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// order this thread's earlier memory operations at cluster scope (before
+// another thread's release, after a barrier between them)
+__device__ __forceinline__ void fence_cluster() {
+  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+}
+
+// every thread of every block of the cluster: arrive and wait
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
 }
 
 // ---- TMA ---------------------------------------------------------------- //
@@ -198,14 +269,24 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%57, %58, %59, %60, %61, %62, %63}"
 
 // The products a kernel issues, by 16-bit input type:
-//   ss_n128: D (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), A and B
-//            K-major in shared memory; `accumulate` 0 overwrites D
+//   ss_n64 / ss_n128: D (64 x N, f32) (+)= A (64 x 16) B (16 x N), A and
+//            B K-major in shared memory; `accumulate` 0 overwrites D
 //   rs_n64 / rs_n128: D (64 x N, f32) += A (64 x 16, registers) B (16 x N),
 //            B MN-major in shared memory
 template <typename T> struct Wgmma;
 
 #define WGMMA_TYPE(CT, TY)                                                  \
   template <> struct Wgmma<CT> {                                            \
+    __device__ __forceinline__ static void ss_n64(float (&d)[32],           \
+                                                  uint64_t da, uint64_t db, \
+                                                  int accumulate) {         \
+      asm volatile(                                                         \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                       \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "       \
+          WGMMA_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                         \
+          : WGMMA_D32                                                       \
+          : "l"(da), "l"(db), "r"(accumulate));                             \
+    }                                                                       \
     __device__ __forceinline__ static void ss_n128(float (&d)[64],          \
                                                    uint64_t da, uint64_t db,\
                                                    int accumulate) {        \
@@ -240,6 +321,21 @@ template <typename T> struct Wgmma;
 
 WGMMA_TYPE(__nv_bfloat16, "bf16")
 WGMMA_TYPE(__half, "f16")
+
+// tf32 product: D (64 x 64, f32) += A (64 x 8, tf32 in registers) B (8 x
+// 64, tf32, K-major in shared memory)
+struct WgmmaTf32 {
+  __device__ __forceinline__ static void rs_n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WGMMA_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : WGMMA_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
 
 #undef WGMMA_TYPE
 #undef WGMMA_R64

@@ -8,19 +8,30 @@ Within a chunk of L steps, with cum the inclusive cumsum of dt*A:
           + (C state_in^T) .* exp(cum)                        inter-chunk
    state  = state_in * exp(cum_L) + (dt x .* exp(cum_L - cum))^T B
 
-all in f32, the chunks walked in order.  `ssd_scan` launches a kernel for
-CUDA tensors and takes `ssd_scan_plain` for CPU tensors.  The kernel's
-route follows the dtype: f32 and f16 run `csrc/ssd_scan.cu` (one block per
-(batch, head), f32 FMAs on the CUDA cores, M kept in f32), bf16
-`csrc/ssd_scan_mma.cu` (one block per (batch, head, slice of up to 64 of P),
-mma.sync on the tensor cores; M is rounded to bf16, the state and the
-decay-scaled x of its update to tf32).  f16 stays off the tensor-core
-route because an f16 M overflows above 65504 where the reference's f32 M
-does not.  It adds one to ``LAUNCHES["ssd_scan"]`` where it launches, and
-one to ``LAUNCHES["ssd_scan.mma"]`` too when the launch took the
-tensor-core route; nowhere else.  The launch gives outputs that autograd
-cannot see through, so it raises when grad mode is on and an input
-requires grad: a gradient goes through `kernels.ssd.ops.SSDScan`.
+all in f32, the chunks' states carried in order.  `ssd_scan` launches a
+kernel for CUDA tensors and takes `ssd_scan_plain` for CPU tensors.  The
+kernel's route (`ssd_route`) is decided before the launch by dtype,
+shape and alignment:
+
+- bf16, P and N multiples of 8 up to 128, a chunk the kernel takes
+  (`wgmma_chunk`: a multiple of 64 up to 256, or one chunk of S),
+  x/Bm/Cm/y 16-byte aligned: `csrc/ssd_scan_wgmma.cu`
+  (v3: one block a chunk, TMA, wgmma, the chunks' states scanned across
+  a thread-block cluster; `cluster_walk`);
+- bf16 otherwise: `csrc/ssd_scan_mma.cu` (v2: one block per (batch,
+  head, slice of P) walking its chunks, mma.sync);
+- f32 and f16: `csrc/ssd_scan.cu` (v1: f32 FMAs on the CUDA cores, M kept
+  in f32).  f16 stays off the tensor-core routes because an f16 M
+  overflows above 65504 where the reference's f32 M does not.
+
+Rounding points: v3 rounds M and the update's dt exp(cum_L - cum) x to
+bf16 and the state, as the operand of C state^T, to tf32; v2 rounds M to
+bf16 and the state and the update's scaled x to tf32; both carry the
+state in f32.  A launch adds one to ``LAUNCHES["ssd_scan"]`` and one to
+``LAUNCHES["ssd_scan.wgmma"]`` or ``["ssd_scan.mma"]`` when it took that
+route; nowhere else.  The launch gives outputs that autograd cannot see
+through, so it raises when grad mode is on and an input requires grad: a
+gradient goes through `kernels.ssd.ops.SSDScan`.
 
 On CUDA and on meta tensors `ssd_scan` goes through the custom op
 ``repro_torch::ssd_scan``: its CUDA implementation is the launch, its
@@ -30,7 +41,7 @@ registered fake gives the outputs' shapes and dtypes (a meta trace,
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -41,12 +52,18 @@ from repro_torch.kernels.common import (DTYPE_CODE, FLOAT_TYPES, check,
                                         stream)
 from repro_torch.models.ssm import ssd_scan as chunked_scan
 
-LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan.mma": 0}
+LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan.wgmma": 0,
+                            "ssd_scan.mma": 0}
 # what one block of the kernels holds in shared memory (csrc/ssd_scan.cu,
 # csrc/ssd_scan_mma.cu)
 MAX_HEAD_DIM = 128
 MAX_STATE = 128
 MAX_CHUNK = 1024
+# the wgmma kernel (csrc/ssd_scan_wgmma.cu): 64-row tiles, chunks of up to
+# four, clusters of 8 blocks along the chunks
+WGMMA_TILE = 64
+WGMMA_MAX_CHUNK = 256
+WGMMA_CLUSTER = 8
 
 
 def reset_launches() -> None:
@@ -66,9 +83,44 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), fin
 
 
+def wgmma_chunk(S: int, L: int) -> int:
+    """The chunk the wgmma kernel walks for L = min(chunk, S): L where S
+    spans several chunks, S rounded up to a 64-row tile where one chunk
+    holds it (the same scan: a lone chunk's length past S changes
+    nothing)."""
+    return L if L < S else -(-S // WGMMA_TILE) * WGMMA_TILE
+
+
+def ssd_route(dtype: torch.dtype, P: int, N: int, L: int, *ptrs: int
+              ) -> str:
+    """The kernel `ssd_scan_launch` (csrc/ssd_scan.cu) runs for these
+    inputs: "wgmma" for bf16 whose P and N are multiples of 8 up to 128
+    and whose chunk ``L`` (the one the kernel walks, `wgmma_chunk`) is a
+    multiple of 64 up to 256, with every base pointer (``ptrs``: x, Bm,
+    Cm, y) 16-byte aligned; "mma" for any other bf16 input; "v1" for f32
+    and f16."""
+    if dtype != torch.bfloat16:
+        return "v1"
+    fits = (all(d % 8 == 0 and 8 <= d <= 128 for d in (P, N))
+            and L % WGMMA_TILE == 0 and WGMMA_TILE <= L <= WGMMA_MAX_CHUNK)
+    if fits and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "mma"
+
+
+def cluster_walk(n_chunks: int) -> Tuple[int, List[List[int]]]:
+    """The wgmma kernel's blocks of one (batch, head, 64-column slice of
+    P): the cluster size CL (8, or 1 where one chunk holds S) and the
+    chunks each block r takes in rounds, r, r + CL, ...  Each round, block
+    k scans rows [8k, 8k + 8) of the slice's state over the round's chunks
+    in order and hands each chunk's entering rows back to its block."""
+    CL = WGMMA_CLUSTER if n_chunks > 1 else 1
+    return CL, [list(range(r, n_chunks, CL)) for r in range(CL)]
+
+
 def _launch_ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                      Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
-                     v1: bool = False
+                     entry: str = "launch"
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     Bsz, S, H, Pd = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -85,19 +137,25 @@ def _launch_ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan kernel takes P <= {MAX_HEAD_DIM}, "
                          f"N <= {MAX_STATE}, chunk <= {MAX_CHUNK}; got "
                          f"P={Pd} N={N} chunk={L}")
+    if entry == "v2_launch" and x.dtype != torch.bfloat16:
+        raise TypeError(f"ssd_scan_v2 takes bfloat16, got {x.dtype}")
     y = torch.empty_like(x)
     fin = torch.empty((Bsz, H, Pd, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         fin.zero_()
         return y, fin
-    entry = lib().ssd_scan_v1_launch if v1 else lib().ssd_scan_launch
-    rc = entry(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-               Cm.data_ptr(), y.data_ptr(), fin.data_ptr(), Bsz, S, H, Pd, G,
-               N, L, DTYPE_CODE[x.dtype], stream(x.device))
+    route = {"launch": ssd_route(x.dtype, Pd, N, wgmma_chunk(S, L),
+                                 x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                                 y.data_ptr()),
+             "v1_launch": "v1", "v2_launch": "mma"}[entry]
+    rc = getattr(lib(), f"ssd_scan_{entry}")(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), fin.data_ptr(), Bsz, S, H, Pd, G, N, L,
+        DTYPE_CODE[x.dtype], stream(x.device))
     check(rc, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
-    if not v1 and x.dtype == torch.bfloat16:
-        LAUNCHES["ssd_scan.mma"] += 1
+    if route != "v1":
+        LAUNCHES[f"ssd_scan.{route}"] += 1
     return y, fin
 
 
@@ -105,9 +163,18 @@ def ssd_scan_v1(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 128
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA-core kernel (`csrc/ssd_scan.cu`) at any dtype, CUDA tensors
-    only: the yardstick that the tensor-core route is timed against.  No
+    only: the yardstick that the tensor-core routes are timed against.  No
     model path calls it."""
-    return _launch_ssd_scan(x, dt, A, Bm, Cm, chunk, v1=True)
+    return _launch_ssd_scan(x, dt, A, Bm, Cm, chunk, "v1_launch")
+
+
+def ssd_scan_v2(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 128
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mma.sync kernel (`csrc/ssd_scan_mma.cu`) at any bf16 shape, CUDA
+    tensors only: the yardstick that the wgmma kernel is timed against, in
+    turns.  No model path calls it."""
+    return _launch_ssd_scan(x, dt, A, Bm, Cm, chunk, "v2_launch")
 
 
 def ssd_ops(B: int, S: int, H: int, P: int, N: int, chunk: int) -> int:

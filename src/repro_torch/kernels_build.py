@@ -2,10 +2,10 @@
 
 The sources under `csrc/` (`swarm_kernels.cu`; `flash_fwd.cu` and
 `ssd_scan.cu`, the CUDA-core kernels and the C entry points;
-`flash_fwd_wgmma.cu`, the flash kernel on wgmma and TMA for bf16 and f16
-at head dims that a tensor map takes, with `wgmma_sm90.cuh`;
-`flash_fwd_mma.cu`, the mma.sync flash kernel for the other 16-bit
-shapes, and `ssd_scan_mma.cu`, the tensor-core SSD kernel for bf16, with
+`flash_fwd_wgmma.cu` and `ssd_scan_wgmma.cu`, the flash kernel for bf16
+and f16 and the SSD kernel for bf16 on wgmma and TMA at the shapes a
+tensor map takes, with `wgmma_sm90.cuh`; `flash_fwd_mma.cu` and
+`ssd_scan_mma.cu`, the mma.sync kernels for the other 16-bit shapes, with
 `mma_sm90.cuh`) are compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc`
 per source all started together, and linked into one shared library with
 a plain C interface under ``build/repro_torch/`` at the repository root,
@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("swarm_kernels.cu", "flash_fwd.cu", "ssd_scan.cu",
                  "flash_fwd_wgmma.cu", "flash_fwd_mma.cu",
-                 "ssd_scan_mma.cu"))
+                 "ssd_scan_wgmma.cu", "ssd_scan_mma.cu"))
 HEADERS = tuple(_PKG / "csrc" / name for name in
                 ("mma_sm90.cuh", "wgmma_sm90.cuh"))
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
@@ -61,6 +61,7 @@ _SIGNATURES = {
 _SIGNATURES["flash_fwd_v1_launch"] = _SIGNATURES["flash_fwd_launch"]
 _SIGNATURES["flash_fwd_v2_launch"] = _SIGNATURES["flash_fwd_launch"]
 _SIGNATURES["ssd_scan_v1_launch"] = _SIGNATURES["ssd_scan_launch"]
+_SIGNATURES["ssd_scan_v2_launch"] = _SIGNATURES["ssd_scan_launch"]
 
 
 def find_nvcc() -> Optional[str]:

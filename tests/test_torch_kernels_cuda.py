@@ -448,11 +448,18 @@ def test_flash_fwd_misaligned_q_takes_mma(mk, dtype):
                 0, dtype, offset=1)
 
 
-def _ssd_case(ssk, rs, B, S, H, P, G_, N, chunk, dtype):
+def _ssd_case(ssk, rs, B, S, H, P, G_, N, chunk, dtype, want=None,
+              offset=0):
     """One ssd_scan launch against its plain version; the launch counts
-    show the route: bf16 on the tensor cores, f32 and f16 on the CUDA
-    cores."""
+    show the route `ssd_route` gives the case: bf16 on wgmma where its
+    shape rule holds and x, B, C and y start 16-byte aligned, other bf16
+    on mma.sync, f32 and f16 on the CUDA cores (``want``, when given, is
+    the route the case must take).  ``offset`` starts x that many
+    elements into its allocation."""
     x = G(rs.standard_normal((B, S, H, P)).astype(np.float32)).to(dtype)
+    if offset:
+        x = torch.empty(x.numel() + offset, dtype=dtype,
+                        device=x.device)[offset:].view(x.shape).copy_(x)
     dt = G(np.logaddexp(rs.standard_normal((B, S, H)), 0)
            .astype(np.float32) * 0.5)
     A = G((-np.exp(rs.standard_normal(H) * 0.3)).astype(np.float32))
@@ -460,12 +467,18 @@ def _ssd_case(ssk, rs, B, S, H, P, G_, N, chunk, dtype):
            .astype(np.float32)).to(dtype)
     Cm = G((rs.standard_normal((B, S, G_, N)) * 0.5)
            .astype(np.float32)).to(dtype)
+    # y comes from the caching allocator, 512-byte aligned
+    route = ssk.ssd_route(dtype, P, N, ssk.wgmma_chunk(S, min(chunk, S)),
+                          x.data_ptr(), Bm.data_ptr(), Cm.data_ptr())
+    if want is not None:
+        assert route == want, (route, want)
     n0 = dict(ssk.LAUNCHES)
     y, fin = ssk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
-    mma = int(dtype == torch.bfloat16)   # f16 keeps M in f32, off mma
-    assert ssk.LAUNCHES == {"ssd_scan": n0["ssd_scan"] + 1,
-                            "ssd_scan.mma": n0["ssd_scan.mma"] + mma}
+    assert ssk.LAUNCHES == {
+        "ssd_scan": n0["ssd_scan"] + 1,
+        "ssd_scan.wgmma": n0["ssd_scan.wgmma"] + int(route == "wgmma"),
+        "ssd_scan.mma": n0["ssd_scan.mma"] + int(route == "mma")}
     wy, wfin = ssk.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     case = (B, S, H, P, G_, N, chunk, dtype)
     assert y.dtype == dtype and fin.dtype == torch.float32
@@ -512,6 +525,37 @@ def test_ssd_scan_kernel_edges(mk, case):
     _ssd_case(ssk, np.random.default_rng(8), *case)
 
 
+# bf16 edges the wgmma kernel takes: two rounds of its 8-block cluster,
+# S = 1, G = 2 on 5 chunks (3 spare slots), P = N = 128 (to chunk 192),
+# mamba2's N = 128 at chunk 256, a lone chunk of S < chunk
+SSD_WGMMA_EDGES = [
+    # B, S, H, P, G, N, chunk
+    (1, 4096, 4, 64, 1, 64, 256),
+    (1, 1, 2, 64, 1, 64, 256),
+    (2, 320, 4, 32, 2, 16, 64),
+    (1, 300, 2, 128, 1, 128, 128),
+    (1, 400, 2, 128, 2, 128, 192),
+    (1, 600, 2, 64, 1, 128, 256),
+    (2, 100, 4, 64, 1, 64, 256),
+]
+
+
+@pytest.mark.parametrize("case", SSD_WGMMA_EDGES, ids=str)
+def test_ssd_scan_wgmma_edges(mk, case):
+    _, ssk = mk
+    _ssd_case(ssk, np.random.default_rng(10), *case, torch.bfloat16,
+              want="wgmma")
+
+
+def test_ssd_scan_misaligned_x_takes_mma(mk):
+    """An x whose storage starts one element past 16 bytes is refused by
+    a tensor map: the launch takes mma.sync, decided before it, and agrees
+    with the plain version."""
+    _, ssk = mk
+    _ssd_case(ssk, np.random.default_rng(11), 2, 300, 4, 64, 1, 64, 256,
+              torch.bfloat16, want="mma", offset=1)
+
+
 def test_ssd_scan_f16_keeps_large_m_finite(mk):
     """f16 inputs whose M = C B^T exp(segsum) dt exceeds f16's 65504
     inside a chunk (B and C near 40 over N = 64, dt near 1, slow decay)
@@ -543,6 +587,7 @@ def test_ssd_scan_f16_keeps_large_m_finite(mk):
     assert float((fin - wfin).abs().max()) <= \
         tol * max(1.0, float(wfin.abs().max()))
     assert ssk.LAUNCHES == {"ssd_scan": n0["ssd_scan"] + 1,
+                            "ssd_scan.wgmma": n0["ssd_scan.wgmma"],
                             "ssd_scan.mma": n0["ssd_scan.mma"]}
 
 
