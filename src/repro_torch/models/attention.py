@@ -47,6 +47,7 @@ from repro_torch.models.layers import (apply_mrope, apply_rope, norm_spec,
                                        rms_norm)
 from repro_torch.parallel import sharding as shlib
 from repro_torch.parallel.sharding import ParamSpec, act_spec, entry_axes
+from repro_torch.spans import spanned
 
 NEG_INF = -1e30
 
@@ -317,6 +318,7 @@ def _q_col_parallel(x: torch.Tensor, wq: torch.Tensor, Hq: int):
     return torch.einsum("bsd,dhe->bshe", xg, wq)
 
 
+@spanned("attention_block")
 def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     local: bool = False, mode: str = "train",
                     positions: Optional[torch.Tensor] = None,

@@ -57,6 +57,7 @@ from repro_torch.parallel import sharding as shlib
 from repro_torch.parallel.sharding import (ParamSpec, init_params,
                                            tree_leaves_with_path,
                                            tree_map_specs)
+from repro_torch.spans import span
 
 # --------------------------------------------------------------------------- #
 # Param specs
@@ -382,17 +383,19 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
 def _remat_body():
     """`_repeat_body` for one checkpointed repeat, from its param blocks
     and FSDP plan: its first call is the forward, under a
-    ``remat_forward`` profiler range; a later call is the recompute that
-    the backward triggers, under ``remat_recompute``, so that a profile
+    ``remat_forward`` span (`spans.span`: a profiler range while a
+    profiler records); a later call is the recompute that the backward
+    triggers, under ``remat_recompute``, so that a profile
     can tell its kernels from the backward node that unpacked the input.
-    Both calls open a range: under remat "dots" the recompute may
-    dispatch only the ops that the forward did."""
+    Both calls open a range, or neither (no profiler records): under
+    remat "dots" the recompute may dispatch only the ops that the
+    forward did."""
     calls = [0]
 
     def body(cfg, layers, p_local, plan, *args):
         calls[0] += 1
         name = "remat_forward" if calls[0] == 1 else "remat_recompute"
-        with torch.profiler.record_function(name):
+        with span(name):
             return _repeat_body(cfg, layers, _gather_fsdp(p_local, plan),
                                 *args)
     return body

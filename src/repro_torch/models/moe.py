@@ -54,6 +54,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_specs
 from repro_torch.parallel import sharding as shlib
 from repro_torch.parallel.sharding import ParamSpec
+from repro_torch.spans import RECORDS, recording, span
 
 # the sharded dispatches taken, by strategy ("a2a", "replicated")
 DISPATCH: collections.Counter = collections.Counter()
@@ -123,6 +124,13 @@ def _dispatch_plan(experts: torch.Tensor, capacity: int, e_base: int,
                                                                 e_count))
     e_s, order = torch.sort(e_local, stable=True)
     counts = _expert_counts(e_s, e_count + 1, torch.long)
+    # the slot counter, while a profiler records: the per-expert counts
+    # the plan computes anyway, left on their device (no launch, no
+    # sync).  A reader reduces the records: kept = sum_e min(counts_e,
+    # capacity) of e_count * capacity slots; on one device the dropped
+    # assignments are N k - kept
+    if recording():
+        RECORDS["moe.slots"].append((counts[:e_count], capacity))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(nk, device=flat.device) - starts[e_s]
     keep_s = (pos < capacity) & (e_s < e_count)
@@ -168,9 +176,13 @@ def _dispatch_compute(xf, gates, experts, keepers, wi_g, wi_u, wo, capacity,
                       e_base, e_count):
     """Scatter tokens into an (e_count, capacity, d) buffer, run the
     experts, gather back.  Returns out (N, d) in xf's dtype."""
-    buf, keep, dest = _dispatch_buffer(xf, experts, capacity, e_base,
-                                       e_count, keepers)
-    return _combine(_expert_mlp(buf, wi_g, wi_u, wo), gates, keep, dest)
+    with span("moe.dispatch"):
+        buf, keep, dest = _dispatch_buffer(xf, experts, capacity, e_base,
+                                           e_count, keepers)
+    with span("moe.experts"):
+        y = _expert_mlp(buf, wi_g, wi_u, wo)
+    with span("moe.combine"):
+        return _combine(y, gates, keep, dest)
 
 
 def capacity(cfg: ModelConfig, N: int) -> int:
@@ -184,21 +196,28 @@ def capacity(cfg: ModelConfig, N: int) -> int:
 
 def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux_loss)."""
+    """x: (B, S, d) -> (out, aux_loss).  Tiled by four spans:
+    ``moe.route`` (router, top-k; the aux statistics), ``moe.dispatch``,
+    ``moe.experts`` and ``moe.combine``."""
     mesh = shlib.current_mesh()
     if mesh is not None and "model" in shlib.axis_sizes(mesh):
         return _moe_block_mesh(params, x, cfg, mesh)
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     xf = x.reshape(B * S, d)
-    gates, experts, probs = _route(xf, params["router"], k)
+    with span("moe.route"):
+        gates, experts, probs = _route(xf, params["router"], k)
     out = _dispatch_compute(xf, gates, experts, None, params["wi_gate"],
                             params["wi_up"], params["wo"],
                             capacity(cfg, B * S), 0, E)
-    aux = _aux_loss(probs, experts, E)
+    # the aux statistics after the combine: ahead of the dispatch, a
+    # checkpoint's recompute launches more kernels for them
+    with span("moe.route"):
+        aux = _aux_loss(probs, experts, E)
     out = out.reshape(B, S, d)
     if cfg.shared_expert:
-        out = out + mlp_apply(params["shared"], x)
+        with span("moe.experts"):
+            out = out + mlp_apply(params["shared"], x)
     return out, aux
 
 
@@ -276,26 +295,34 @@ def _moe_block_mesh(params: dict, x: torch.Tensor, cfg: ModelConfig, mesh
     xf = xl.reshape(-1, d)
     N_loc = xf.shape[0]
     cap = local_capacity(cfg, N_loc)
-    gates, experts, probs = _route(xf, params["router"], k)
-    # the aux statistics, averaged across the token shards before their
-    # product, so the sharded aux equals the global batch's
-    f_loc, p_loc = _aux_stats(probs, experts, E)
-    stat_axes = data_axes + ("model",) if strategy == "a2a" else data_axes
-    aux = E * torch.sum(C.pmean(f_loc, stat_axes, mesh)
-                        * C.pmean(p_loc, stat_axes, mesh)) / k
+    with span("moe.route"):
+        gates, experts, probs = _route(xf, params["router"], k)
+        # the aux statistics, averaged across the token shards before
+        # their product, so the sharded aux equals the global batch's
+        f_loc, p_loc = _aux_stats(probs, experts, E)
+        stat_axes = (data_axes + ("model",) if strategy == "a2a"
+                     else data_axes)
+        aux = E * torch.sum(C.pmean(f_loc, stat_axes, mesh)
+                            * C.pmean(p_loc, stat_axes, mesh)) / k
     wi_g, wi_u, wo = params["wi_gate"], params["wi_up"], params["wo"]
     if strategy == "a2a":
-        buf, keep, dest = _dispatch_buffer(xf, experts, cap, 0, E)
         # (E, cap, d) -> each rank its E_loc experts' slots of every rank
         a2a = a2a_int8 if cfg.moe_a2a_int8 else C.all_to_all
-        y = _expert_mlp(a2a(buf, "model", mesh, 0, 1), wi_g, wi_u, wo)
-        out = _combine(a2a(y, "model", mesh, 1, 0), gates, keep, dest)
+        with span("moe.dispatch"):
+            buf, keep, dest = _dispatch_buffer(xf, experts, cap, 0, E)
+            buf = a2a(buf, "model", mesh, 0, 1)
+        with span("moe.experts"):
+            y = _expert_mlp(buf, wi_g, wi_u, wo)
+        with span("moe.combine"):
+            out = _combine(a2a(y, "model", mesh, 1, 0), gates, keep, dest)
     else:
         e_base = C.axis_index("model", mesh) * E_loc
         out = _dispatch_compute(xf, gates, experts, None, wi_g, wi_u, wo, cap,
                                 e_base, E_loc)
-        out = C.psum(out, "model", mesh)
+        with span("moe.combine"):
+            out = C.psum(out, "model", mesh)
     out = C.relayout(out.reshape(xl.shape), (b_in, s_in, None), res, mesh)
     if cfg.shared_expert:
-        out = out + mlp_apply(params["shared"], x, d_ff=cfg.moe_d_ff)
+        with span("moe.experts"):
+            out = out + mlp_apply(params["shared"], x, d_ff=cfg.moe_d_ff)
     return out, aux

@@ -27,6 +27,7 @@ says why the partials sum to the gradient).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -40,6 +41,7 @@ from repro_torch.parallel import sharding as shlib
 from repro_torch.parallel.sharding import (ParamSpec, ShardingRules,
                                            _set_path, init_params,
                                            tree_leaves_with_path)
+from repro_torch.spans import span, spanned
 
 
 def train_state_specs(cfg: ModelConfig, opt: Optional[AdamWConfig] = None
@@ -90,8 +92,11 @@ def _partial_grads(cfg: ModelConfig, params: dict, batch: dict
     with torch.enable_grad():
         loss, metrics = M.loss_fn(cfg, half, batch)
         wrt = [(path, p) for path, p in flat if p.requires_grad]
-        gs = torch.autograd.grad(loss, [p for _, p in wrt],
-                                 allow_unused=True)
+        # the backward's kernels launch from autograd's device thread, not
+        # under this span: it names the main thread's wait
+        with span("train.backward"):
+            gs = torch.autograd.grad(loss, [p for _, p in wrt],
+                                     allow_unused=True)
     grads = {path: torch.zeros_like(p) if g is None else g
              for (path, p), g in zip(wrt, gs)}
     return {k: v.detach() for k, v in metrics.items()}, grads
@@ -186,6 +191,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
     rules = rules or shlib.DEFAULT_RULES
     leaf_axes = _leaf_axes(cfg, mesh, rules) if mesh is not None else None
 
+    @spanned("train.step")
     def train_step(state, batch):
         n_micro = max(cfg.micro_steps, 1)
         if n_micro == 1:
@@ -217,9 +223,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
             grads, err_state = compress_tree(grads, state.get("err"),
                                              compress, mesh=mesh,
                                              leaf_axes=leaf_axes)
-        # a named range, so that a profile of the step can tell the
+        # a named span, so that a profile of the step can tell the
         # optimizer's kernels from the backward's
-        with torch.profiler.record_function("adamw_update"):
+        with span("adamw_update"):
             new_params, new_opt, stats = adamw_update(
                 opt_cfg, state["params"], grads, state["opt"],
                 state["step"], mesh=mesh, leaf_axes=leaf_axes)
@@ -253,15 +259,18 @@ def _seq_len(batch: dict) -> int:
             ).shape[1]
 
 
-def _serve_step(cfg: ModelConfig, fn, mesh, rules, return_logits: bool):
+def _serve_step(cfg: ModelConfig, fn, mesh, rules, return_logits: bool,
+                name: Optional[str] = None):
     """A serve step of ``fn`` (`M.prefill` or `M.decode_step`): the
     greedy token of its last logits (and the logits, whole on every rank,
-    with ``return_logits``), on one device or SPMD on a mesh."""
+    with ``return_logits``), on one device (under the span ``name``, if
+    given) or SPMD on a mesh."""
     if mesh is None:
         @torch.no_grad()
         def step(params, batch, caches):
-            last_logits, new_caches = fn(cfg, params, batch, caches)
-            next_tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
+            with span(name) if name else contextlib.nullcontext():
+                last_logits, new_caches = fn(cfg, params, batch, caches)
+                next_tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
             if return_logits:
                 return next_tok, new_caches, last_logits
             return next_tok, new_caches
@@ -295,7 +304,8 @@ def _serve_step(cfg: ModelConfig, fn, mesh, rules, return_logits: bool):
 def make_prefill_step(cfg: ModelConfig, mesh=None,
                       rules: Optional[ShardingRules] = None,
                       return_logits: bool = False):
-    return _serve_step(cfg, M.prefill, mesh, rules, return_logits)
+    return _serve_step(cfg, M.prefill, mesh, rules, return_logits,
+                       "serve.prefill")
 
 
 def make_decode_step(cfg: ModelConfig, mesh=None,

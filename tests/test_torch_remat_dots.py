@@ -234,7 +234,9 @@ class CountRecompute(TorchDispatchMode):
     """The batch size of each matmul launch dispatched inside a
     ``remat_recompute`` profiler range (what a saved output does not
     reach), 0 for a 2-d product.  An unbatched einsum launches a `bmm`
-    with a batch of 1; at B = 2 every batched product here has more."""
+    with a batch of 1; at B = 2 every batched product here has more.
+    The port opens its ranges only while a profiler records: use inside
+    a `torch.profiler.profile`."""
 
     def __init__(self):
         super().__init__()
@@ -265,7 +267,9 @@ def test_no_projection_is_recomputed(arch, use_pallas):
     params = params_from_reference(tree, device="cpu")
     seen = {}
     for remat in ("dots", "full"):
-        with CountRecompute() as mode:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]), \
+                CountRecompute() as mode:
             loss_and_grads(cfg.replace(remat=remat), params, tensors(batch))
         seen[remat] = mode.batches
     assert all(b > 1 for b in seen["dots"]), seen["dots"]
