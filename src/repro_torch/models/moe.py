@@ -27,6 +27,13 @@ expert outputs are gathered in routing order into ``(N, k, d)`` and summed
 over k, with no atomics (a CUDA `index_add_` would add a token's k
 contributions in an order that changes from run to run).  The reference
 adds them in expert order, so sums differ from it in the last bits only.
+The two reads through the slot map, the buffer's and the combine's, carry
+their own backward (`_Dispatch`, `_Combine`): a gather through the map's
+inverse, under a ``moe.backward`` span.  PyTorch's backward of an index
+read is an accumulating `index_put_`, which sorts the indices and adds
+each run of equal ones serially; here every empty slot reads the one zero
+row and every dropped assignment the one trash row, long runs whose
+gradient is thrown away.
 
 Under a mesh with a ``model`` axis (`parallel.sharding.sharding_ctx`)
 `moe_block` takes the reference's sharded dispatch (`_moe_block_mesh`):
@@ -141,6 +148,63 @@ def _dispatch_plan(experts: torch.Tensor, capacity: int, e_base: int,
     return keep, dest
 
 
+def _padded(rows: torch.Tensor) -> torch.Tensor:
+    """rows (R, d) and one zero row after them, at index R."""
+    return torch.cat([rows, rows.new_zeros(1, rows.shape[-1])])
+
+
+def _slot_map(dest: torch.Tensor, slots: int, empty: int,
+              value: torch.Tensor) -> torch.Tensor:
+    """(slots,): ``value[a]`` in slot ``dest[a]`` of each assignment a,
+    ``empty`` where no assignment went.  A slot holds at most one
+    assignment; the dropped ones all land in the trash entry past the
+    last slot, which is cut off."""
+    return torch.full((slots + 1,), empty, dtype=torch.long,
+                      device=dest.device).index_copy_(0, dest, value)[:-1]
+
+
+class _Dispatch(torch.autograd.Function):
+    """The buffer's read of the tokens, ``_padded(xf)[src]``.  Backward:
+    each token's k slots of the buffer's gradient, gathered through
+    ``dest`` (a dropped assignment reads the zero row past the last slot)
+    and summed in routing order: no sort, no atomics, deterministic."""
+
+    @staticmethod
+    def forward(ctx, xf, src, dest):
+        ctx.save_for_backward(dest)
+        ctx.tokens = xf.shape[0]
+        return _padded(xf)[src]
+
+    @staticmethod
+    def backward(ctx, g):
+        (dest,) = ctx.saved_tensors
+        with span("moe.backward"):
+            rows = _padded(g)[dest].view(ctx.tokens, -1, g.shape[-1])
+            return rows.sum(dim=1), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """The assignments' read of the expert outputs, ``_padded(y)[dest]``.
+    Backward: each slot's gradient row gathered from the assignment that
+    filled it (the slot map's inverse of ``dest``); an empty slot reads
+    the zero row past the last assignment."""
+
+    @staticmethod
+    def forward(ctx, y, dest):
+        ctx.save_for_backward(dest)
+        ctx.slots = y.shape[0]
+        return _padded(y)[dest]
+
+    @staticmethod
+    def backward(ctx, g):
+        (dest,) = ctx.saved_tensors
+        with span("moe.backward"):
+            nk = dest.numel()
+            inv = _slot_map(dest, ctx.slots, nk,
+                            torch.arange(nk, device=dest.device))
+            return _padded(g)[inv], None
+
+
 def _dispatch_buffer(xf, experts, capacity, e_base, e_count, keepers=None):
     """The (e_count, capacity, d) expert buffer of xf's tokens and the
     plan (keep, dest) that combines its outputs back (`_combine`)."""
@@ -148,11 +212,10 @@ def _dispatch_buffer(xf, experts, capacity, e_base, e_count, keepers=None):
     k = experts.shape[1]
     keep, dest = _dispatch_plan(experts, capacity, e_base, e_count, keepers)
     tok = torch.arange(N, device=xf.device)[:, None].expand(N, k).reshape(-1)
-    # slot -> source token; empty slots (and the trash row) read row N = 0
-    src = torch.full((e_count * capacity + 1,), N, dtype=torch.long,
-                     device=xf.device).index_copy_(0, dest, tok)
-    xpad = torch.cat([xf, xf.new_zeros(1, d)])
-    return xpad[src[:-1]].reshape(e_count, capacity, d), keep, dest
+    # slot -> source token; an empty slot reads row N = 0
+    src = _slot_map(dest, e_count * capacity, N, tok)
+    return (_Dispatch.apply(xf, src, dest).reshape(e_count, capacity, d),
+            keep, dest)
 
 
 def _expert_mlp(buf, wi_g, wi_u, wo):
@@ -167,9 +230,9 @@ def _combine(y, gates, keep, dest):
     and summed in routing order: (N, d)."""
     N, k = gates.shape
     d = y.shape[-1]
-    y_flat = torch.cat([y.reshape(-1, d), y.new_zeros(1, d)])
     w = (gates.reshape(-1) * keep).to(y.dtype)
-    return (y_flat[dest] * w[:, None]).reshape(N, k, d).sum(dim=1)
+    return (_Combine.apply(y.reshape(-1, d), dest) * w[:, None]
+            ).reshape(N, k, d).sum(dim=1)
 
 
 def _dispatch_compute(xf, gates, experts, keepers, wi_g, wi_u, wo, capacity,

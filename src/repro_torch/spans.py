@@ -20,7 +20,10 @@ autograd's device thread, under its nodes), ``adamw_update``,
 ``remat_forward`` / ``remat_recompute`` (`models.model`),
 ``attention_block`` (`models.attention`) and the four parts that tile
 `models.moe.moe_block`: ``moe.route``, ``moe.dispatch``, ``moe.experts``
-and ``moe.combine``.  Records: ``moe.slots`` (`models.moe`)."""
+and ``moe.combine``; ``moe.backward``, the backwards of the block's two
+reads through its slot map (`models.moe._Dispatch`, `_Combine`), entered
+from autograd's thread, two a MoE layer and step.  Records:
+``moe.slots`` (`models.moe`)."""
 from __future__ import annotations
 
 import collections

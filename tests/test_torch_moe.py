@@ -14,6 +14,7 @@ up and down (the bar of `tests/test_torch_train_steps.py`: the reference's
 init rule saturates the attention softmax, and llama4's attention `wk`
 gradient moves 3.2e-5 under that nudge in the reference itself).
 """
+import contextlib
 import math
 
 import numpy as np
@@ -289,3 +290,128 @@ def test_serve_launcher_runs_a_reduced_moe(capsys):
     serve.main(["--arch", "qwen3-moe-30b-a3b", "--reduced", "--requests",
                 "3", "--max-new", "3", "--slots", "2", "--device", "cpu"])
     assert "served 3 requests, 9 tokens" in capsys.readouterr().out
+
+
+class PlainDispatch:
+    """The buffer's read as a plain index read: autograd's backward, an
+    accumulating `index_put_`, in place of `moe._Dispatch`'s."""
+
+    @staticmethod
+    def apply(xf, src, dest):
+        return moe._padded(xf)[src]
+
+
+class PlainCombine:
+    """The combine's read as a plain index read (`moe._Combine`)."""
+
+    @staticmethod
+    def apply(y, dest):
+        return moe._padded(y)[dest]
+
+
+@contextlib.contextmanager
+def plain_reads(monkeypatch):
+    """Within the block, both slot-map reads are plain index reads."""
+    with monkeypatch.context() as m:
+        m.setattr(moe, "_Dispatch", PlainDispatch)
+        m.setattr(moe, "_Combine", PlainCombine)
+        yield
+
+
+# tokens, capacity (None: the rule's, dropless at N <= 512), e_base,
+# e_count, keepers; k = 2 of E = 8 experts, routed with a skew, so that
+# the busiest experts overflow and the quietest leave slots empty
+BLOCK_CASES = {"drops_and_empty_slots": (96, 20, 0, 8, False),
+               "dropless": (64, None, 0, 8, False),
+               "slice_with_keepers": (96, 16, 2, 4, True)}
+
+
+def block_inputs(case, seed=12):
+    N, cap, e_base, e_count, with_keepers = BLOCK_CASES[case]
+    d, E, dff, k = 16, 8, 12, 2
+    gen = torch.Generator().manual_seed(seed)
+    skew = torch.tensor([8.0, 4, 2, 1, 1, 0.2, 0.1, 0.05])
+    experts = torch.multinomial(skew.expand(N, E), k, generator=gen)
+    keepers = (torch.rand(N, k, generator=gen) > 0.3 if with_keepers
+               else None)
+    if cap is None:
+        cap = moe.capacity(cfgs("qwen3-moe-30b-a3b")[1], N)
+    shapes = [(N, d), (N, k), (e_count, d, dff), (e_count, d, dff),
+              (e_count, dff, d)]
+    leaves = [torch.randn(s, generator=gen, dtype=torch.float64)
+              .requires_grad_() for s in shapes]
+    probe = torch.randn(N, d, generator=gen, dtype=torch.float64)
+    return experts, keepers, cap, e_base, e_count, leaves, probe
+
+
+GRADS = ("x", "gates", "wi_gate", "wi_up", "wo", "buffer", "expert_out")
+
+
+def block_grads(experts, keepers, cap, e_base, e_count, leaves, probe):
+    """The gradients of sum(probe * the block's output) in x, the gates,
+    the three expert weights, and the expert buffer and outputs
+    (`moe._dispatch_compute`'s three steps): an empty slot's rows get
+    none."""
+    xf, gates, wi_g, wi_u, wo = leaves
+    buf, keep, dest = moe._dispatch_buffer(xf, experts, cap, e_base,
+                                           e_count, keepers)
+    y = moe._expert_mlp(buf, wi_g, wi_u, wo)
+    out = moe._combine(y, gates, keep, dest)
+    return torch.autograd.grad((out * probe).sum(), leaves + [buf, y])
+
+
+MODEL_CASES = ("remat_full", "remat_dots")
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES) + list(MODEL_CASES))
+def test_slot_map_backward_matches_plain_indexing(case, monkeypatch):
+    """The dispatch's and the combine's backward, gathers through the slot
+    map's inverse, against autograd through plain index reads: in float64
+    on the block (drops and empty slots; dropless; a slice of the experts
+    with keepers), and in float32 (the configurations' widest dtype) over
+    the reduced qwen3-moe's train step under remat "full" and "dots",
+    past 512 tokens so that assignments drop."""
+    if case in MODEL_CASES:
+        _, cfg = cfgs("qwen3-moe-30b-a3b", remat=case.split("_")[1],
+                      **DROPPING)
+        params = params_from_reference(init_params_numpy(
+            13, M.model_param_specs(cfg)), M.model_param_specs(cfg),
+            device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (4, 161), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(14))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+        def grads():
+            return dict(tree_leaves_with_path(
+                loss_and_grads(cfg, params, batch)[1]))
+        got = grads()
+        with plain_reads(monkeypatch):
+            want = grads()
+        assert got.keys() == want.keys()
+        for leaf in ("router", "wi_gate", "wi_up", "wo"):
+            assert any(leaf in p for p in got), leaf
+        for path, a in want.items():
+            assert rel_err(a.numpy(), got[path]) < REL, path
+        return
+    inputs = block_inputs(case)
+    experts, keepers, cap, e_base, e_count = inputs[:5]
+    keep, _ = moe._dispatch_plan(experts, cap, e_base, e_count, keepers)
+    kept, slots = int(keep.sum()), e_count * cap
+    if case == "dropless":
+        assert bool(keep.all()) and cap == experts.shape[0]
+    else:
+        assert not bool(keep.all())
+    assert kept < slots          # empty slots read the pad row
+    got = block_grads(*inputs)
+    with plain_reads(monkeypatch):
+        want = block_grads(*inputs)
+    for name, a, b in zip(GRADS, want, got):
+        assert rel_err(a.numpy(), b) < 1e-13, name
+
+
+def test_slot_map_backward_is_bitwise_repeatable():
+    """The same backward twice gives the same bits: at most k rows summed
+    a token, in routing order, and no atomics."""
+    inputs = block_inputs("drops_and_empty_slots", seed=15)
+    first, second = block_grads(*inputs), block_grads(*inputs)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

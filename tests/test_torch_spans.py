@@ -215,3 +215,28 @@ def test_slot_counter_matches_a_recount(case, monkeypatch):
         assert N <= 512 and cap == N and dropped == 0
     else:
         assert N > 512 and dropped > 0 and kept < E * cap
+
+
+def n_moe_layers(cfg):
+    return sum(g.repeat * sum(ls.mlp == "moe" for ls in g.layers)
+               for g in cfg.groups)
+
+
+@pytest.mark.parametrize("kind", sorted(STEPS))
+def test_moe_backward_counts_two_a_moe_layer_in_training(kind, monkeypatch):
+    """A train step under a profiler enters ``moe.backward`` twice a MoE
+    layer (the dispatch's and the combine's backward), each inside the
+    autograd node of its read; a prefill step, which runs no backward,
+    never (and without a profiler nothing counts: the test above)."""
+    cfg, events = traced(kind, monkeypatch)
+    n = n_moe_layers(cfg)
+    assert n > 0
+    got = [e for e in events if e.name == "moe.backward"]
+    if kind == "prefill":
+        assert spans.COUNTS["moe.backward"] == 0 and not got
+        return
+    assert spans.COUNTS["moe.backward"] == 2 * n == len(got)
+    nodes = collections.Counter(
+        next(a for a in chain(e) if "Backward" in a).rsplit(" ", 1)[-1]
+        for e in got)
+    assert nodes == {"_DispatchBackward": n, "_CombineBackward": n}
