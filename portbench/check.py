@@ -1,6 +1,12 @@
 """What decides ``correct``: the outputs of the timed path held to the
-plain reference (`portbench/reference`), each number against its limit
+plain reference, each number against its limit
 (`portbench/limits/<cell>.json`).
+
+The reference is the configuration's own model of its architecture, the
+module ``reference/<name>.py`` that its file names (``ref`` below,
+`harness.reference_module`; the contract is in `reference/ops.py`).  No
+function here knows an architecture: each takes the module and walks the
+layers of the configuration's ``run_as`` (`places`).
 
 A served prefill is judged layer by layer from the program's own state
 (and an MoE layer's routing from the tokens the program routed, so that a
@@ -9,10 +15,11 @@ the experts):
 the random deep stacks amplify any rounding, so that the whole model in
 bfloat16 cannot be told from a wrong one at its last logits, while each
 layer can.  For every layer the reference takes the program's input to
-it and computes, in float32, what the layer should add to the residual
-and the states it should leave in the cache; the program's output and
-cache are measured against that.  The start (the embedding) and the end
-(the head's logits and the served token) are judged by themselves.
+it, and its own embedding of the batch's tokens as the stack's input,
+and computes, in float32, what the layer should add to the residual and
+the states it should leave in the cache; the program's output and cache
+are measured against that.  The start (the embedding) and the end (the
+head's logits and the served token) are judged by themselves.
 
 The control stands in for the program: the same reference in float8
 e4m3 products, its residual kept in bfloat16 between layers as the
@@ -20,24 +27,30 @@ program keeps it (`control_prefill`).  Judged by the same code it has to
 fail."""
 from __future__ import annotations
 
+from typing import Iterator, NamedTuple
+
 import torch
 
-from portbench.reference import ops
+
+class Place(NamedTuple):
+    """Where a layer sits in the stack: its running index, its group,
+    the group's repeat and the layer's position in the group, and its
+    layer dict."""
+    index: int
+    group: int
+    repeat: int
+    position: int
+    spec: dict
 
 
-def layer_specs(m: dict):
-    """(group, repeat, position, layer dict) of every layer, in order."""
+def places(m: dict) -> Iterator[Place]:
+    """The `Place` of every layer of ``m["groups"]``, in order."""
+    i = 0
     for gi, g in enumerate(m["groups"]):
         for r in range(g["repeat"]):
             for pi, ls in enumerate(g["layers"]):
-                yield gi, r, pi, ls
-
-
-def layer_params(params: dict, gi: int, r: int, pi: int) -> dict:
-    def pick(t):
-        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[r]
-    return pick(params["decoder"][f"g{gi}"][f"L{pi}"])
+                yield Place(i, gi, r, pi, ls)
+                i += 1
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -51,12 +64,13 @@ STATE_NUMBER = {"ssm": "state_err", "conv_x": "conv_err",
                 "v": "kv_err", "shared_k": "kv_err", "shared_v": "kv_err"}
 
 
-def judge_layers(m: dict, params: dict, layers: list, states: list,
-                 caches: bool = True) -> dict:
+def judge_layers(ref, m: dict, params: dict, tokens: torch.Tensor,
+                 layers: list, states: list, caches: bool = True) -> dict:
     """The worst layer's numbers.  ``layers[i]`` is (input, output) of
     layer i's residual as the program ran it, ``states[i]`` the cache
     entries that layer left (with ``caches``) and an MoE layer's input
-    and routing.
+    and routing; ``tokens`` the batch, whose embedding by ``ref`` is the
+    stack's input each layer is handed.
 
     layer_err: rel. L2 error of what the layer added to the residual;
     route_err: the share of an MoE layer's (token, choice) assignments
@@ -65,66 +79,65 @@ def judge_layers(m: dict, params: dict, layers: list, states: list,
     is float64 on both sides); state_err / conv_err / kv_err: rel. L2
     error of the SSM states, the convolutions' states and K / V."""
     worst: dict = {}
-    shared = params.get("shared_attn")
-    for i, (gi, r, pi, ls) in enumerate(layer_specs(m)):
-        x_in, x_out = layers[i]
-        want, want_states = ops.layer(ls, layer_params(params, gi, r, pi),
-                                      shared, x_in, m, "f32",
-                                      moe_in=states[i].get("moe_in"))
+    x0 = ref.embed(params, tokens)
+    for at in places(m):
+        x_in, x_out = layers[at.index]
+        want, want_states = ref.layer(at, params, x_in, x0, m, "f32",
+                                      moe_in=states[at.index].get("moe_in"))
         x_in = x_in.float()
         errs = {"layer_err": rel_l2(x_out.float() - x_in, want - x_in)}
         if "experts" in want_states:
             errs["route_err"] = float(
-                (states[i]["experts"] != want_states["experts"]).double()
-                .mean())
+                (states[at.index]["experts"] != want_states["experts"])
+                .double().mean())
         for name, w in want_states.items():
             if name in STATE_NUMBER and caches:
                 key = STATE_NUMBER[name]
                 errs[key] = max(errs.get(key, 0.0),
-                                rel_l2(states[i][name], w))
+                                rel_l2(states[at.index][name], w))
         for k, v in errs.items():
             worst[k] = max(worst.get(k, 0.0), v)
         del want, want_states
     return worst
 
 
-def judge_prefill(m: dict, params: dict, tokens: torch.Tensor,
+def judge_prefill(ref, m: dict, params: dict, tokens: torch.Tensor,
                   logits: torch.Tensor, layers: list, states: list) -> dict:
     """The numbers of one prefill batch: `judge_layers`' with the cache,
     and embed_err, max |program's first residual - embedding row|
     (exact), and logits_err, the rel. L2 error of the last logits
     ``logits`` (B, V), from the program's last residual."""
-    out = {"embed_err": float((layers[0][0].float() - ops.embed(
-        params["embed"]["embedding"], tokens)).abs().max())}
-    out.update(judge_layers(m, params, layers, states))
-    ref = ops.logits(params["embed"], layers[-1][1][:, -1].float(), m, "f32")
-    out["logits_err"] = rel_l2(logits.float(), ref)
+    out = {"embed_err": float((layers[0][0].float() - ref.embed(
+        params, tokens)).abs().max())}
+    out.update(judge_layers(ref, m, params, tokens, layers, states))
+    want = ref.logits(params, layers[-1][1][:, -1].float(), m, "f32")
+    out["logits_err"] = rel_l2(logits.float(), want)
     return out
 
 
-def token_gap(m: dict, params: dict, last: torch.Tensor,
+def token_gap(ref, m: dict, params: dict, last: torch.Tensor,
               served: torch.Tensor) -> float:
     """The widest gap by which a served token's reference logit, from the
     program's last residual ``last`` (B, d), lies below the reference's
     best.  Reported, not compared: on sound runs it reads a near-tie's
     rounding and the control reads no more (see PERF.md)."""
-    ref = ops.logits(params["embed"], last.float(), m, "f32")
-    best = ref.max(dim=-1).values
-    return float((best - ref.gather(1, served.long()[:, None])[:, 0]).max())
+    want = ref.logits(params, last.float(), m, "f32")
+    best = want.max(dim=-1).values
+    return float((best - want.gather(1, served.long()[:, None])[:, 0]).max())
 
 
 @torch.no_grad()
-def control_forward(m: dict, params: dict, tokens: torch.Tensor,
+def control_forward(ref, m: dict, params: dict, tokens: torch.Tensor,
                     act_dtype=torch.bfloat16):
     """The reference in the program's place, its products in float8 and
-    its residual kept in ``act_dtype``: (layers, states) as
-    `judge_layers` takes them, and the last residual."""
-    x = ops.embed(params["embed"]["embedding"], tokens).to(act_dtype)
+    its residual kept in ``act_dtype`` (its embedding, the stack's input,
+    too): (layers, states) as `judge_layers` takes them, and the last
+    residual."""
+    x0 = ref.embed(params, tokens).to(act_dtype)
+    x = x0
     layers, states = [], []
-    shared = params.get("shared_attn")
-    for gi, r, pi, ls in layer_specs(m):
-        y, st = ops.layer(ls, layer_params(params, gi, r, pi), shared, x, m,
-                          "fp8", act_dtype=act_dtype)
+    for at in places(m):
+        y, st = ref.layer(at, params, x, x0, m, "fp8", act_dtype=act_dtype)
         y = y.to(act_dtype)
         layers.append((x, y))
         states.append(st)
@@ -133,13 +146,12 @@ def control_forward(m: dict, params: dict, tokens: torch.Tensor,
 
 
 @torch.no_grad()
-def control_prefill(m: dict, params: dict, tokens: torch.Tensor,
+def control_prefill(ref, m: dict, params: dict, tokens: torch.Tensor,
                     act_dtype=torch.bfloat16):
     """`control_forward` with the head's logits, also in float8:
     (logits, layers, states) as `judge_prefill` takes them."""
-    layers, states, x = control_forward(m, params, tokens, act_dtype)
-    return ops.logits(params["embed"], x[:, -1].float(), m, "fp8"), layers, \
-        states
+    layers, states, x = control_forward(ref, m, params, tokens, act_dtype)
+    return ref.logits(params, x[:, -1].float(), m, "fp8"), layers, states
 
 
 def verdict(numbers: dict, limits: dict) -> bool:
@@ -177,12 +189,13 @@ def leaf_norms(leaves: dict) -> dict:
     return {p: float(t.double().norm()) for p, t in leaves.items()}
 
 
-def reference_steps(m: dict, opt: dict, draw, batches: list,
+def reference_steps(ref, m: dict, opt: dict, draw, batches: list,
                     prec: str = "f32", against: dict | None = None,
                     keep_signs: bool = False) -> dict:
-    """The first ``len(batches)`` AdamW steps of the reference from the
-    float32 tree that ``draw()`` gives (drawn again at the end to measure
-    the change, rather than held as a copy): each step's loss, each
+    """The first ``len(batches)`` AdamW steps of the reference (``ref``'s
+    loss, `reference.train.adamw`) from the float32 tree that ``draw()``
+    gives (drawn again at the end to measure the change, rather than
+    held as a copy): each step's loss, each
     leaf's gradient norm at step 1 as the optimizer receives it (after
     clipping), and each leaf's change over the steps: its norm
     ("change"), with ``keep_signs`` the signs of its elements packed on
@@ -198,8 +211,8 @@ def reference_steps(m: dict, opt: dict, draw, batches: list,
     for i, batch in enumerate(batches):
         for t in leaves.values():
             t.requires_grad_(True)
-        loss = train.loss(m, unflat(leaves), batch["tokens"],
-                          batch["labels"], prec)
+        loss = ref.loss(m, unflat(leaves), batch["tokens"], batch["labels"],
+                        prec)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
         grads = {p: torch.zeros_like(t) if g is None else g.detach()

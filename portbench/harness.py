@@ -1,9 +1,11 @@
 """One run of one cell of the benchmark of the PyTorch port.
 
 Everything that belongs to a cell is found by name: the cell's entry in
-``BENCHMARK.json`` names its configuration (``configs/<name>.json``) and
-its traffic mix (``traffic/<name>.json``), whose ``kind`` names the loop
-that drives and judges it (``loops/<kind>.py``: `load_loop`); its
+``BENCHMARK.json`` names its configuration (``configs/<name>.json``),
+whose ``reference`` names the benchmark's model of its architecture
+(``reference/<name>.py``: `reference_module`), and its traffic mix
+(``traffic/<name>.json``), whose ``kind`` names the loop that drives and
+judges it (``loops/<kind>.py``: `load_loop`); its
 per-layer metrics are the manifest's ``per_layer`` entries that list the
 cell or its end-to-end metric, each read by ``metrics/<name>.py``; the
 limits of its comparison are ``limits/<cell>.json``.  Adding a cell, a
@@ -97,6 +99,19 @@ def load_metric(name: str, bench: Path = BENCH):
     return load_file(bench / "metrics" / f"{name}.py", "portbench_metric")
 
 
+def reference_module(config: str, conf: dict, bench: Path = BENCH):
+    """The plain reference of the configuration ``config`` (its file's
+    dict ``conf``): the module ``reference/<conf["reference"]>.py``, whose
+    contract is in `reference/ops.py`.  A configuration that names none is
+    refused."""
+    if "reference" not in conf:
+        raise ValueError(f"configuration {config!r} names no reference "
+                         "module: its file needs a top-level \"reference\", "
+                         "the name of a module in portbench/reference/")
+    return load_file(bench / "reference" / f"{conf['reference']}.py",
+                     "portbench_reference")
+
+
 def load_loop(kind: str, bench: Path = BENCH):
     """The loop of a kind of traffic, ``loops/<kind>.py``: a module with
     ``run(ctx) -> numbers`` (set-up, which ends with
@@ -148,6 +163,7 @@ def quantile(xs: List[float], q: float) -> float:
 class Run:
     """What a run hands its per-layer metric readers."""
     conf: dict                 # the configuration file
+    ref: Any                   # its reference module (`reference_module`)
     traffic: dict              # the traffic file
     step_s: float              # unprofiled seconds a call in the window
     steps_traced: int
@@ -191,6 +207,7 @@ class Context:
         self.man = manifest(root)
         self.entry = cell_entry(self.man, cell)
         self.conf = config_file(self.man, self.entry["config"], bench)
+        self.ref = reference_module(self.entry["config"], self.conf, bench)
         self.traffic = load_json(bench / "traffic" /
                                  f"{self.entry['traffic']}.json")
         self.limits = load_json(bench / "limits" / f"{cell}.json")
@@ -264,7 +281,7 @@ def result(ctx: Context, numbers: Dict[str, float]) -> dict:
     correct = check.verdict(numbers, ctx.limits) and ctx.failed == 0
     metrics = {}
     if ctx.trace:
-        run = Run(ctx.conf, ctx.traffic, ctx.step_s,
+        run = Run(ctx.conf, ctx.ref, ctx.traffic, ctx.step_s,
                   ctx.traffic["profile_steps"], ctx.traced)
         for m in ctx.metrics:
             v = ctx.readers[m["name"]].read(run)

@@ -25,21 +25,23 @@ import torch
 from portbench import check, weights
 from portbench import harness as H
 from portbench import tracing as tr
+from portbench.reference.ops import exact_matmuls
 
 
 def capture(step, params, batch, caches):
-    """One call of ``step`` with each layer's residual input and output
-    recorded (`models.model.apply_layer` wrapped from outside), and each
-    MoE block's input and routing (`models.moe.moe_block`, `_route`)."""
+    """One call of ``step`` with each layer's residual input (the
+    argument named ``x``) and output recorded (`models.model.apply_layer`
+    wrapped from outside), and each MoE block's input and routing
+    (`models.moe.moe_block`, `_route`)."""
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_lib
     layers, moe_in, experts = [], [], []
     with tr.hooked(M, "apply_layer",
-                   after=lambda args, out: layers.append((args[3], out[0]))), \
+                   after=lambda a, out: layers.append((a["x"], out[0]))), \
             tr.hooked(moe_lib, "moe_block",
-                      after=lambda args, out: moe_in.append(args[1])), \
+                      after=lambda a, out: moe_in.append(a["x"])), \
             tr.hooked(moe_lib, "_route",
-                      after=lambda args, out: experts.append(out[1])):
+                      after=lambda a, out: experts.append(out[1])):
         tok, caches, logits = step(params, batch, caches)
     return tok, caches, logits, layers, (moe_in, experts)
 
@@ -48,10 +50,10 @@ def layer_states(m: dict, caches: dict, moe) -> list:
     """Each layer's cache entries, in layer order, with an MoE layer's
     input and routing (``moe`` = the lists `capture` recorded)."""
     out, moe_at = [], 0
-    for gi, r, pi, ls in check.layer_specs(m):
-        c = caches["decoder"][f"g{gi}"][f"L{pi}"]
-        st = {k: v[r] for k, v in c.items()}
-        if ls["mlp"] == "moe":
+    for at in check.places(m):
+        c = caches["decoder"][f"g{at.group}"][f"L{at.position}"]
+        st = {k: v[at.repeat] for k, v in c.items()}
+        if at.spec["mlp"] == "moe":
             st["moe_in"], st["experts"] = moe[0][moe_at], moe[1][moe_at]
             moe_at += 1
         out.append(st)
@@ -96,22 +98,23 @@ def judge_program(ctx: H.Context, step, params, batch, caches):
         tok, caches, logits, layers, moe = capture(
             step, params, {"tokens": batch}, caches)
     H.free_memory(ctx.device)
-    with torch.no_grad(), check.ops.exact_matmuls():
-        got = check.judge_prefill(ctx.m, params, batch, logits, layers,
-                                  layer_states(ctx.m, caches, moe))
-        ctx.note(f"served tokens' widest gap below the reference's best "
-                 f"{check.token_gap(ctx.m, params, layers[-1][1][:, -1], tok)}"
+    with torch.no_grad(), exact_matmuls():
+        got = check.judge_prefill(ctx.ref, ctx.m, params, batch, logits,
+                                  layers, layer_states(ctx.m, caches, moe))
+        gap = check.token_gap(ctx.ref, ctx.m, params, layers[-1][1][:, -1],
+                              tok)
+        ctx.note(f"served tokens' widest gap below the reference's best {gap}"
                  " (reported, not compared)")
     return got, tok.cpu()
 
 
 def judge_control(ctx: H.Context, params, batch) -> dict:
     """The comparison's numbers of the control in the program's place."""
-    with torch.no_grad(), check.ops.exact_matmuls():
+    with torch.no_grad(), exact_matmuls():
         logits, layers, states = check.control_prefill(
-            ctx.m, params, batch, ctx.cfg.act_dtype)
-        return check.judge_prefill(ctx.m, params, batch, logits, layers,
-                                   states)
+            ctx.ref, ctx.m, params, batch, ctx.cfg.act_dtype)
+        return check.judge_prefill(ctx.ref, ctx.m, params, batch, logits,
+                                   layers, states)
 
 
 def worst(into: Dict[str, float], got: Dict[str, float]) -> None:

@@ -27,6 +27,7 @@ import torch
 from portbench import check, weights
 from portbench import harness as H
 from portbench import tracing as tr
+from portbench.reference.ops import exact_matmuls
 
 
 def batches(ctx: H.Context) -> list:
@@ -51,29 +52,29 @@ def masters(ctx: H.Context) -> dict:
 
 @contextlib.contextmanager
 def forward_capture(m: dict):
-    """Within the block, the first forward's residual input and output of
-    every layer, and each MoE layer's input and routing, recorded from
-    outside the program (a recompute's calls come later and are left
-    out): yields ``(layers, states)`` as `check.judge_layers` takes
-    them, filled when the block ends."""
+    """Within the block, the first forward's residual input (the argument
+    named ``x``) and output of every layer, and each MoE layer's input
+    and routing, recorded from outside the program (a recompute's calls
+    come later and are left out): yields ``(layers, states)`` as
+    `check.judge_layers` takes them, filled when the block ends."""
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_lib
-    specs = list(check.layer_specs(m))
-    n_moe = sum(ls["mlp"] == "moe" for *_, ls in specs)
+    specs = [at.spec for at in check.places(m)]
+    n_moe = sum(ls["mlp"] == "moe" for ls in specs)
     layers, moe_in, experts, states = [], [], [], []
 
     def keep(seq, limit, item):
         if len(seq) < limit:
             seq.append(item)
     with tr.hooked(M, "apply_layer", after=lambda a, o: keep(
-            layers, len(specs), (a[3].detach(), o[0].detach()))), \
+            layers, len(specs), (a["x"].detach(), o[0].detach()))), \
             tr.hooked(moe_lib, "moe_block", after=lambda a, o: keep(
-                moe_in, n_moe, a[1].detach())), \
+                moe_in, n_moe, a["x"].detach())), \
             tr.hooked(moe_lib, "_route", after=lambda a, o: keep(
                 experts, n_moe, o[1])):
         yield layers, states
     at = 0
-    for *_, ls in specs:
+    for ls in specs:
         states.append({})
         if ls["mlp"] == "moe":
             states[-1] = {"moe_in": moe_in[at], "experts": experts[at]}
@@ -141,15 +142,16 @@ def judge_program(ctx: H.Context, readings: dict) -> dict:
     batches; the program's readings are judged against it, and its first
     forward layer by layer."""
     t = ctx.traffic
-    with torch.no_grad(), check.ops.exact_matmuls():
-        layers = check.judge_layers(ctx.m, compute_weights(masters(ctx),
-                                                           ctx.cfg),
+    first = batches(ctx)[:t["check_steps"]]
+    with torch.no_grad(), exact_matmuls():
+        layers = check.judge_layers(ctx.ref, ctx.m,
+                                    compute_weights(masters(ctx), ctx.cfg),
+                                    first[0]["tokens"],
                                     *readings.pop("forward"), caches=False)
     H.free_memory(ctx.device)
-    with check.ops.exact_matmuls():
-        ref = check.reference_steps(ctx.m, t["optimizer"],
-                                    lambda: masters(ctx),
-                                    batches(ctx)[:t["check_steps"]],
+    with exact_matmuls():
+        ref = check.reference_steps(ctx.ref, ctx.m, t["optimizer"],
+                                    lambda: masters(ctx), first,
                                     against=readings.pop("signs"))
     for key in ("grads", "change"):
         ctx.note(f"widest {key} gaps {check.leaf_gaps(readings, ref, key)[:4]}")
@@ -163,18 +165,19 @@ def judge_control(ctx: H.Context) -> dict:
     t = ctx.traffic
     first = batches(ctx)[:t["check_steps"]]
     params = compute_weights(masters(ctx), ctx.cfg)
-    with torch.no_grad(), check.ops.exact_matmuls():
+    tokens = first[0]["tokens"]
+    with torch.no_grad(), exact_matmuls():
         layers, states, _ = check.control_forward(
-            ctx.m, params, first[0]["tokens"], ctx.cfg.act_dtype)
-        layers = check.judge_layers(ctx.m, params, layers, states,
-                                    caches=False)
+            ctx.ref, ctx.m, params, tokens, ctx.cfg.act_dtype)
+        layers = check.judge_layers(ctx.ref, ctx.m, params, tokens, layers,
+                                    states, caches=False)
     del params, states
-    with check.ops.exact_matmuls():
-        got = check.reference_steps(ctx.m, t["optimizer"],
+    with exact_matmuls():
+        got = check.reference_steps(ctx.ref, ctx.m, t["optimizer"],
                                     lambda: masters(ctx), first, "fp8",
                                     keep_signs=True)
         H.free_memory(ctx.device)
-        ref = check.reference_steps(ctx.m, t["optimizer"],
+        ref = check.reference_steps(ctx.ref, ctx.m, t["optimizer"],
                                     lambda: masters(ctx), first,
                                     against=got.pop("signs"))
     for key in ("grads", "change"):

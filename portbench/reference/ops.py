@@ -1,12 +1,40 @@
-"""The plain reference of the benchmarked models: every block written out
-in float32 PyTorch from its equations, with no kernel, cache or batching
-of the program under test.  It imports nothing of that program.
+"""The plain reference of the port's layer stack (the layouts of
+`repro_torch.configs`): every block written out in float32 PyTorch from
+its equations, with no kernel, cache or batching of the program under
+test.  It imports nothing of that program.
 
-A layer is described by a plain dict (``{"mixer": "ssd" | "attn" |
-"none", "mlp": "dense" | "moe" | "none", "shared_attn": bool}``) and the
-model by the ``run_as`` dict of a configuration file (`portbench/configs`).
-Weights come in as the benchmark drew them, one layer's dict at a time,
-and are read in float32.
+**A reference module.**  A configuration file names the benchmark's model
+of its architecture in its top-level key ``"reference"``: the module
+``portbench/reference/<name>.py``, loaded once a process
+(`harness.reference_module`).  Everything that knows an architecture is
+there; the judge (`check`), the loops, `reference/train.py` and the
+metric readers take the module and import none.  Such a module exports:
+
+- ``embed(params, tokens)``: the stack's input (B, S, d) in float32;
+- ``logits(params, x, m, prec)``: the head's logits of x (B, d);
+- ``layer(at, params, x, x0, m, prec, *, moe_in=None, act_dtype=None)
+  -> (x_out, states)``: one layer over the residual x.  ``at`` is its
+  `check.Place` (running index, group, repeat, position, layer dict);
+  ``params`` the whole tree, from which the module picks the layer's
+  leaves and any shared block; ``x0`` the stack's input, ``embed`` of the
+  batch's tokens.  ``states`` holds what a cache keeps, under the names
+  of `check.STATE_NUMBER`, and of an MoE layer ``moe_in`` (the tokens it
+  routed: ``moe_in`` where given, the program's own; else its own,
+  rounded to ``act_dtype`` where given) and ``experts`` (its routing);
+- ``loss(m, params, tokens, labels, prec)``: the training loss;
+- ``param_count(m, active)`` and ``model_flops(m, B, S, kind)``: what
+  the ``mfu.*`` readers divide by.
+
+``m`` is the configuration's ``run_as`` dict; weights come in as the
+benchmark drew them and are read in float32.  The shared numerics below
+(`ein`, `exact_matmuls`, `rms_norm`, `rope`, `attention`, `causal_conv`,
+`ssd_scan`) are for other reference modules to import.
+
+This module's layer is described by a plain dict (``{"mixer": "ssd" |
+"attn" | "none", "mlp": "dense" | "moe" | "none", "shared_attn": bool}``):
+x + mixer(norm(x)), then x + shared_attention(norm(x)) where the layer
+applies it, then x + mlp(norm(x)).  It reads neither ``at``'s index nor
+``x0``.
 
 ``prec`` selects the arithmetic of every product: "f32" is the reference
 (under `exact_matmuls` on a card, so that no product runs in TF32);
@@ -21,6 +49,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from portbench.check import places
 
 FP8_MAX = 448.0          # largest finite float8 e4m3 value
 
@@ -251,17 +282,31 @@ def moe(p: dict, x: torch.Tensor, m: dict, prec: str, route_in=None):
     return out.reshape(B, S, d), experts
 
 
-def layer(lspec: dict, p: dict, shared: dict, x: torch.Tensor, m: dict,
-          prec: str, moe_in=None, act_dtype=None):
+def layer_leaves(params: dict, at) -> dict:
+    """The leaves of the layer at ``at`` (its repeat's slice)."""
+    def pick(t):
+        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[at.repeat]
+    return pick(params["decoder"][f"g{at.group}"][f"L{at.position}"])
+
+
+def layer(at, params: dict, x: torch.Tensor, x0: torch.Tensor, m: dict,
+          prec: str, *, moe_in=None, act_dtype=None):
     """One layer over the residual x (B, S, d), as the configuration runs
-    it: x + mixer(norm(x)), then x + shared_attention(norm(x)) where the
-    layer applies it, then x + mlp(norm(x)).  Returns (x, states) with
-    the states a cache keeps: ``ssm`` / ``conv_*`` of the SSD mixer,
-    ``k`` / ``v`` of the attention mixer, ``shared_k`` / ``shared_v`` of
-    the shared attention; and of an MoE, ``moe_in``, the tokens it routed
-    (``moe_in`` where given: the program's own; else its normed input,
-    rounded to ``act_dtype`` where given, as a program keeps it) and
-    ``experts``, its routing."""
+    it (the contract above; ``x0`` and ``at.index`` are not read)."""
+    return block(at.spec, layer_leaves(params, at), params.get("shared_attn"),
+                 x, m, prec, moe_in=moe_in, act_dtype=act_dtype)
+
+
+def block(lspec: dict, p: dict, shared: dict, x: torch.Tensor, m: dict,
+          prec: str, moe_in=None, act_dtype=None):
+    """`layer` on one layer's leaves ``p`` and the shared attention's
+    ``shared``: x + mixer(norm(x)), then x + shared_attention(norm(x))
+    where the layer applies it, then x + mlp(norm(x)).  Returns (x,
+    states) with the states a cache keeps: ``ssm`` / ``conv_*`` of the
+    SSD mixer, ``k`` / ``v`` of the attention mixer, ``shared_k`` /
+    ``shared_v`` of the shared attention; and of an MoE, ``moe_in`` and
+    ``experts``."""
     eps = m["norm_eps"]
     x = x.float()
     states = {}
@@ -293,12 +338,132 @@ def layer(lspec: dict, p: dict, shared: dict, x: torch.Tensor, m: dict,
     return x, states
 
 
-def embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return emb.float()[tokens.long()]
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``, in float32."""
+    return params["embed"]["embedding"].float()[tokens.long()]
 
 
-def logits(p: dict, x: torch.Tensor, m: dict, prec: str) -> torch.Tensor:
+def logits(params: dict, x: torch.Tensor, m: dict, prec: str
+           ) -> torch.Tensor:
     """The head's logits of x (B, d): the final RMS norm, then the
     unembedding."""
+    p = params["embed"]
     return ein(prec, "bd,dv->bv", rms_norm(x, p["final_norm"], m["norm_eps"]),
                p["lm_head"])
+
+
+# ------------------------------------------------------------------ training
+def moe_aux(p: dict, h: torch.Tensor, m: dict) -> torch.Tensor:
+    """The load-balance loss of one MoE layer over its input h:
+    E * sum_e f_e P_e / k, f_e the share of assignments to expert e and
+    P_e its mean router probability (Switch Transformer)."""
+    E, k = m["num_experts"], m["experts_per_token"]
+    hf = h.reshape(-1, h.shape[-1])
+    probs = torch.softmax((hf.double() @ p["router"].double()).float(), -1)
+    _, experts = moe_route(hf.detach(), p["router"].detach(), k)
+    f = torch.bincount(experts.reshape(-1), minlength=E).float() / hf.shape[0]
+    return E * torch.sum(f * probs.mean(0)) / k
+
+
+def head_nll(params: dict, x: torch.Tensor, labels: torch.Tensor, m: dict,
+             prec: str) -> torch.Tensor:
+    """Mean token NLL of ``labels`` under the head's logits of the last
+    residual x (B, S, d), a row at a time."""
+    p = params["embed"]
+    h = rms_norm(x, p["final_norm"], m["norm_eps"])
+    nll = 0.0
+    for b in range(h.shape[0]):
+        lg = ein(prec, "sd,dv->sv", h[b], p["lm_head"])
+        nll = nll + F.cross_entropy(lg, labels[b].long(), reduction="sum")
+    return nll / labels.numel()
+
+
+def loss(m: dict, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+         prec: str = "f32") -> torch.Tensor:
+    """Mean token NLL of ``labels`` plus ``router_aux_coef`` times the
+    MoE layers' load-balance losses; each layer recomputed in the
+    backward (`torch.utils.checkpoint`) so that it fits."""
+    x = embed(params, tokens)
+    aux = torch.zeros((), device=x.device)
+    shared = params.get("shared_attn")
+    for at in places(m):
+        ls, p = at.spec, layer_leaves(params, at)
+
+        def body(x, p=p, ls=ls):
+            if ls["mlp"] != "moe":
+                return block(ls, p, shared, x, m, prec)[0], \
+                    torch.zeros((), device=x.device)
+            mid = block(dict(ls, mlp="none"), p, shared, x, m, prec)[0]
+            h = rms_norm(mid, p["ln_mlp"], m["norm_eps"])
+            y, _ = moe(p["moe"], h, m, prec)
+            return mid + y, moe_aux(p["moe"], h, m)
+        x, a = checkpoint(body, x, use_reentrant=False)
+        aux = aux + a
+    return head_nll(params, x, labels, m, prec) + \
+        m.get("router_aux_coef", 0.0) * aux
+
+
+# ------------------------------------------------------------------ counts
+def layer_params(m: dict, ls: dict, active: bool) -> int:
+    """Parameters of one layer (the routed experts' share alone where
+    ``active``: each expert leaf times k // E, as the program counts)."""
+    d = m["d_model"]
+    n = 0
+    if ls["mixer"] == "ssd":
+        di = m["ssm_expand"] * d
+        h = di // m["ssm_head_dim"]
+        gn = m["ssm_ngroups"] * m["ssm_state"]
+        w = m["ssm_conv_width"]
+        n += d + 2 * d * di + 2 * d * gn + d * h + w * di + 2 * w * gn \
+            + 3 * h + di + di * d
+    elif ls["mixer"] == "attn":
+        n += d + attn_params(m, m["num_heads"], m["num_kv_heads"],
+                             m["qk_norm"])
+    if ls["mlp"] == "dense":
+        n += d + 3 * d * m["d_ff"]
+    elif ls["mlp"] == "moe":
+        E, k, f = m["num_experts"], m["experts_per_token"], m["moe_d_ff"]
+        leaf = E * d * f
+        n += d + d * E + 3 * (leaf * k // E if active else leaf)
+    return n
+
+
+def attn_params(m: dict, heads: int, kv_heads: int, qk_norm: bool) -> int:
+    d, hd = m["d_model"], m["head_dim"]
+    return 2 * d * heads * hd + 2 * d * kv_heads * hd + \
+        (2 * hd if qk_norm else 0)
+
+
+def param_count(m: dict, active: bool = False) -> int:
+    """Every parameter of the model (embedding, head and final norm
+    included)."""
+    d, V = m["d_model"], m["vocab_size"]
+    n = 2 * V * d + d
+    specs = [at.spec for at in places(m)]
+    n += sum(layer_params(m, ls, active) for ls in specs)
+    if any(ls.get("shared_attn") for ls in specs):
+        n += d + attn_params(m, m["shared_attn_heads"],
+                             m["shared_attn_kv_heads"], m["qk_norm"])
+    return n
+
+
+def _attn_layers(m: dict) -> int:
+    return sum((at.spec["mixer"] == "attn") + bool(at.spec.get("shared_attn"))
+               for at in places(m))
+
+
+def model_flops(m: dict, B: int, S: int, kind: str) -> float:
+    """Model FLOP of one step over B sequences of S tokens: 2 N T for a
+    prefill and 6 N T for a train step (N the active parameters less
+    the embedding, whose lookup is free), plus causal attention,
+    4 B (S^2 / 2) H D a layer, three times that in training.  No
+    recompute is counted."""
+    n = param_count(m, active=m.get("num_experts", 0) > 0) \
+        - m["vocab_size"] * m["d_model"]
+    attn = 4.0 * B * (S * S / 2) * m["num_heads"] * m["head_dim"] \
+        * _attn_layers(m)
+    if kind == "train":
+        return 6.0 * n * B * S + 3.0 * attn
+    if kind == "prefill":
+        return 2.0 * n * B * S + attn
+    raise ValueError(f"no model FLOP for a {kind!r} step")

@@ -1,10 +1,13 @@
-"""The frozen counts of `portbench/counts` against the numbers the card
-printed (`chip_smoke.py`'s kernel lines) and against the program's own
-counting functions."""
+"""The frozen counts of `portbench/counts` and of the reference module's
+``param_count`` / ``model_flops`` against the numbers the card printed
+(`chip_smoke.py`'s kernel lines), against the program's own counting
+functions, and against the values they had when they lived in
+`counts/flops.py`."""
 import pytest
 
 from portbench_small import run_as, small_run_as, one_thread  # noqa: F401
 from portbench.counts import flops
+from portbench.reference import ops
 
 
 def test_scan_counts_match_the_card():
@@ -30,19 +33,49 @@ def test_model_flops_match_the_program(config, small):
     from repro_torch.models.model import count_params
     m = small_run_as(config) if small else run_as(config)
     cfg = harness.program_config({"run_as": m}, "cpu")
-    assert flops.param_count(m) == count_params(cfg)
-    assert flops.param_count(m, active=True) == count_params(
+    assert ops.param_count(m) == count_params(cfg)
+    assert ops.param_count(m, active=True) == count_params(
         cfg, active_only=True)
     for kind in ("prefill", "train"):
-        assert flops.model_flops(m, 4, 2048, kind) == pytest.approx(
+        assert ops.model_flops(m, 4, 2048, kind) == pytest.approx(
             model_flops_of(cfg, 4, 2048, kind), rel=1e-12)
 
 
 def test_model_sizes():
-    assert flops.param_count(run_as("zamba2-7b")) == pytest.approx(
+    assert ops.param_count(run_as("zamba2-7b")) == pytest.approx(
         6.60e9, rel=0.01)
-    assert flops.param_count(run_as("qwen3-moe-30b-a3b")) == pytest.approx(
+    assert ops.param_count(run_as("qwen3-moe-30b-a3b")) == pytest.approx(
         30.5e9, rel=0.01)
+
+
+# (parameters, active parameters, {(B, kind): model FLOP at S=2048}) as
+# `counts.flops` gave them before the counts moved into the reference
+# module; B 8 is the prefill cell's batch, 2 the train cell's.
+PINNED = {
+    "qwen3-moe-30b-a3b": (30532122624, 3353032704, {
+        (8, "prefill"): 112870062817280.0, (8, "train"): 338610188451840.0,
+        (2, "prefill"): 28217515704320.0, (2, "train"): 84652547112960.0}),
+    "qwen3-moe-30b-a3b.stage4": (3114814464, 849890304, {
+        (8, "prefill"): 18752464748544.0, (8, "train"): 56257394245632.0,
+        (2, "prefill"): 4688116187136.0, (2, "train"): 14064348561408.0}),
+}
+
+
+@pytest.mark.parametrize("config", sorted(PINNED))
+def test_model_flops_are_pinned(config):
+    """The ``mfu.*`` readers divide by what they divided by before: the
+    configuration's own reference module gives the same numbers to the
+    last digit."""
+    from portbench import harness
+    conf = harness.config_file(harness.manifest(harness.BENCH.parent),
+                               config)
+    ref = harness.reference_module(config, conf)
+    n, active, steps = PINNED[config]
+    m = conf["run_as"]
+    assert ref.param_count(m) == n
+    assert ref.param_count(m, active=True) == active
+    for (B, kind), f in steps.items():
+        assert ref.model_flops(m, B, 2048, kind) == f
 
 
 @pytest.mark.parametrize("args", [(2, 2048, 112, 64, 64, 256),

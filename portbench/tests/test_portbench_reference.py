@@ -38,20 +38,21 @@ def test_layers_match_the_program(config, B, S):
     x = torch.randn(B, S, m["d_model"])
     pos = torch.broadcast_to(torch.arange(S), (B, S))
     seen = set()
-    for gi, r, pi, ls in check.layer_specs(m):
+    for at in check.places(m):
+        ls = at.spec
         key = (ls["mixer"], ls["mlp"], ls["shared_attn"])
         if key in seen:
             continue
         seen.add(key)
-        spec = cfg.groups[gi].layers[pi]
+        spec = cfg.groups[at.group].layers[at.position]
         cache = init_params(0, M.layer_cache_specs(cfg, spec, B, S),
                             device="cpu")
-        p = check.layer_params(params, gi, r, pi)
+        p = ops.layer_leaves(params, at)
         got, _, nc = M.apply_layer(cfg, spec, p, x, torch.zeros(()),
                                    shared_params=params.get("shared_attn"),
                                    mode="prefill", positions=pos,
                                    cache=cache)
-        want, st = ops.layer(ls, p, params.get("shared_attn"), x, m, "f32")
+        want, st = ops.layer(at, params, x, x, m, "f32")
         assert rel(got - x, want - x) < 1e-4, key
         for name, w in st.items():
             if name in check.STATE_NUMBER:
@@ -68,10 +69,10 @@ def test_embedding_and_head_match_the_program(config):
     m, cfg, params = setup(config, 2, 8)
     tok = torch.randint(0, m["vocab_size"], (2, 8))
     assert torch.equal(L.embed_tokens(params["embed"], tok, cfg),
-                       ops.embed(params["embed"]["embedding"], tok))
+                       ops.embed(params, tok))
     x = torch.randn(2, 1, m["d_model"])
     got = L.lm_logits(params["embed"], x, cfg)[:, 0]
-    assert rel(got, ops.logits(params["embed"], x[:, 0], m, "f32")) < 1e-5
+    assert rel(got, ops.logits(params, x[:, 0], m, "f32")) < 1e-5
 
 
 def test_routing_matches_the_program():
@@ -97,21 +98,25 @@ def test_scan_matches_the_quadratic_form():
     assert rel(y, wy) < 1e-5 and rel(st, wst) < 1e-5
 
 
+PROGRAM = {"repro_torch", "repro", "jax", "jaxlib", "flax"}
+
+
 def test_reference_imports_nothing_of_the_program():
-    for path in (ROOT / "portbench" / "reference").rglob("*.py"):
+    """Every module of `portbench/reference`, by its source and by what
+    importing it loads."""
+    modules = sorted((ROOT / "portbench" / "reference").glob("*.py"))
+    assert {"ops", "train"} <= {p.stem for p in modules}
+    for path in modules:
         tree = ast.parse(path.read_text())
         names = [a.name for n in ast.walk(tree)
                  if isinstance(n, ast.Import) for a in n.names]
         names += [n.module or "" for n in ast.walk(tree)
                   if isinstance(n, ast.ImportFrom)]
-        tops = {n.split(".")[0] for n in names}
-        assert not tops & {"repro_torch", "repro", "jax", "jaxlib", "flax"}, \
-            path
-    code = ("import sys; sys.path.insert(0, %r); "
-            "import portbench.reference.ops; "
-            "print(sorted({n.split('.')[0] for n in sys.modules} & "
-            "{'repro_torch', 'repro', 'jax', 'jaxlib', 'flax'}))"
-            % str(ROOT))
+        assert not {n.split(".")[0] for n in names} & PROGRAM, path
+    code = ("import sys; sys.path.insert(0, %r); %s; "
+            "print(sorted({n.split('.')[0] for n in sys.modules} & %r))"
+            % (str(ROOT), "; ".join(f"import portbench.reference.{p.stem}"
+                                    for p in modules), PROGRAM))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.stdout.strip() == "[]", out.stderr

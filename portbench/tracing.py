@@ -12,6 +12,7 @@ what the host was doing."""
 from __future__ import annotations
 
 import contextlib
+import inspect
 import math
 import time
 from dataclasses import dataclass, field
@@ -21,9 +22,12 @@ from typing import Callable, Dict, List, Tuple
 @contextlib.contextmanager
 def hooked(module, name: str, after=None, tag: str | None = None):
     """``module.name`` wrapped for the block: run under a profiler range
-    ``tag``, and ``after(args, result)`` called on each call."""
+    ``tag``, and ``after(arguments, result)`` called on each call, with
+    the call's arguments by the names of the function's signature (those
+    passed: no defaults)."""
     import torch
     inner = getattr(module, name)
+    sig = inspect.signature(inner) if after is not None else None
 
     def call(*args, **kw):
         if tag is None:
@@ -32,7 +36,7 @@ def hooked(module, name: str, after=None, tag: str | None = None):
             with torch.profiler.record_function(tag):
                 out = inner(*args, **kw)
         if after is not None:
-            after(args, out)
+            after(sig.bind(*args, **kw).arguments, out)
         return out
     setattr(module, name, call)
     try:
