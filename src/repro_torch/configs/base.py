@@ -13,7 +13,9 @@ Every assigned architecture maps onto this one substrate:
          "none"        no mixer (pure-MLP layer; unused by assigned archs)
   mlp:   "dense" | "moe" | "none"
   shared_attn: bool    Zamba2-style weight-tied global attention applied after
-                       the mixer (params shared across all applications).
+                       the mixer (params shared across all applications); with
+                       ``shared_blocks`` > 0 the published Zamba2 block instead,
+                       run before the mixer and feeding its input.
 """
 from __future__ import annotations
 
@@ -64,6 +66,7 @@ class ModelConfig:
     mrope: bool = False           # multimodal 3D RoPE (Qwen2-VL)
     mrope_sections: Tuple[int, ...] = (16, 24, 24)  # t,h,w splits of head_dim/2
     attn_logit_softcap: float = 0.0
+    attn_scale: Optional[float] = None  # the scores' scale; None: 1/sqrt(D)
 
     # --- MoE ---------------------------------------------------------------
     num_experts: int = 0
@@ -80,10 +83,20 @@ class ModelConfig:
     ssm_ngroups: int = 1
     ssm_conv_width: int = 4
     ssd_chunk: int = 256
+    ssm_conv_bias: bool = False   # a bias on each causal conv, before its SiLU
 
     # --- shared attention (Zamba2) ------------------------------------------
     shared_attn_heads: int = 0    # 0 => num_heads
     shared_attn_kv_heads: int = 0
+    # The published Zamba2 block (Zyphra/Zamba2-7B), where > 0: a layer
+    # with ``shared_attn`` first runs block (its application number mod
+    # shared_blocks) on concat(x, x0), x0 the embedding's output: RMS norm,
+    # attention (2 d_model in, d_model out), RMS norm, a GELU-gated MLP of
+    # d_ff whose gate and up projections add a rank-``shared_adapter_rank``
+    # adapter of the application's own; then the layer's own d_model x
+    # d_model linear, added to the mixer's input and not to the residual.
+    shared_blocks: int = 0
+    shared_adapter_rank: int = 0
 
     # --- encoder/decoder ----------------------------------------------------
     is_encdec: bool = False
@@ -224,8 +237,10 @@ ARCH_MODULES = [
     "mamba2_2_7b",
     "zamba2_7b",
     "seamless_m4t_medium",
+    "zamba2_7b_instruct",       # the port's own: not in ARCH_IDS below
 ]
 
+# the assigned architectures, as the JAX package lists them
 ARCH_IDS = [
     "internlm2-20b",
     "gemma3-12b",
@@ -274,4 +289,6 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         kw.update(encoder_groups=shrink_groups(cfg.encoder_groups))
     if cfg.shared_attn_heads:
         kw.update(shared_attn_heads=4, shared_attn_kv_heads=2)
+    if cfg.shared_adapter_rank:
+        kw.update(shared_adapter_rank=8)
     return cfg.replace(**kw)

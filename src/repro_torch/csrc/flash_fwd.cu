@@ -230,7 +230,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int NJ>
 int launch_nj(const void* q, const void* k, const void* v, void* out,
               void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-              int causal, int window, cudaStream_t stream) {
+              int causal, int window, float scale, cudaStream_t stream) {
   const size_t floats = (size_t)kBQ * pad_stride(D) + kv_buffer(D)
       + (size_t)kBQ * pad_stride(kBK);
   const size_t bytes = floats * sizeof(float);
@@ -244,7 +244,6 @@ int launch_nj(const void* q, const void* k, const void* v, void* out,
     configured = bytes;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  const float scale = (float)(1.0 / sqrt((double)D));
   flash_fwd_kernel<T, NJ><<<grid, kThreads, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, Sq, Skv,
       Hq, Hkv, D, causal, window, scale);
@@ -254,22 +253,22 @@ int launch_nj(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
-           int window, cudaStream_t st) {
+           int window, float scale, cudaStream_t st) {
   if (D <= 16)
     return launch_nj<T, 1>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                           causal, window, st);
+                           causal, window, scale, st);
   if (D <= 32)
     return launch_nj<T, 2>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                           causal, window, st);
+                           causal, window, scale, st);
   if (D <= 64)
     return launch_nj<T, 4>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                           causal, window, st);
+                           causal, window, scale, st);
   if (D <= 128)
     return launch_nj<T, 8>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                           causal, window, st);
+                           causal, window, scale, st);
   if (D <= 256)
     return launch_nj<T, 16>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                            causal, window, st);
+                            causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -280,10 +279,11 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 int flash_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                     void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
                     int D, int causal, int window, int dtype,
-                    cudaStream_t st);
+                    float scale, cudaStream_t st);
 int flash_fwd_mma(const void* q, const void* k, const void* v, void* out,
                   void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                  int causal, int window, int dtype, cudaStream_t st);
+                  int causal, int window, int dtype, float scale,
+                  cudaStream_t st);
 
 // The rule of kernel.py's flash_route: a head dim that a tensor map and
 // wgmma take (a multiple of 8 up to 128) and base pointers that a tensor
@@ -304,16 +304,16 @@ extern "C" {
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                      void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
                      int D, int causal, int window, int dtype,
-                     void* stream) {
+                     float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return launch<float>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D, causal,
-                         window, st);
+                         window, scale, st);
   if (wgmma_route(D, q, k, v, out))
     return flash_fwd_wgmma(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                           causal, window, dtype, st);
+                           causal, window, dtype, scale, st);
   return flash_fwd_mma(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D, causal,
-                       window, dtype, st);
+                       window, dtype, scale, st);
 }
 
 // The mma.sync kernel (flash_fwd_mma.cu) at any 16-bit shape: the
@@ -322,9 +322,9 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
 int flash_fwd_v2_launch(const void* q, const void* k, const void* v,
                         void* out, void* lse, int B, int Sq, int Skv, int Hq,
                         int Hkv, int D, int causal, int window, int dtype,
-                        void* stream) {
+                        float scale, void* stream) {
   return flash_fwd_mma(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D, causal,
-                       window, dtype, (cudaStream_t)stream);
+                       window, dtype, scale, (cudaStream_t)stream);
 }
 
 // The CUDA-core kernel above at any dtype: the yardstick that the
@@ -332,18 +332,18 @@ int flash_fwd_v2_launch(const void* q, const void* k, const void* v,
 int flash_fwd_v1_launch(const void* q, const void* k, const void* v,
                         void* out, void* lse, int B, int Sq, int Skv, int Hq,
                         int Hkv, int D, int causal, int window, int dtype,
-                        void* stream) {
+                        float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case 0:
       return launch<float>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D, causal,
-                           window, st);
+                           window, scale, st);
     case 1:
       return launch<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                                   causal, window, st);
+                                   causal, window, scale, st);
     case 2:
       return launch<__half>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                            causal, window, st);
+                            causal, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -298,7 +298,7 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int KD>
 int launch_kd(const void* q, const void* k, const void* v, void* out,
               void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-              int causal, int window, cudaStream_t stream) {
+              int causal, int window, float scale, cudaStream_t stream) {
   const size_t bytes = (size_t)5 * kBQ * (16 * KD + 8) * sizeof(T);
   // raise the block's shared-memory ceiling once per instantiation (and
   // never inside a CUDA graph capture, which replays launches only)
@@ -318,7 +318,7 @@ int launch_kd(const void* q, const void* k, const void* v, void* out,
     vec = w < vec ? w : vec;
   }
   const dim3 grid(Hq, B, n_qt);
-  const float scale_log2 = (float)(1.0 / sqrt((double)D)) * kLog2e;
+  const float scale_log2 = scale * kLog2e;
   flash_fwd_mma_kernel<T, KD><<<grid, kThreads, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, Sq, Skv,
       Hq, Hkv, D, causal, window, scale_log2, vec);
@@ -328,11 +328,11 @@ int launch_kd(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
-           int window, cudaStream_t st) {
+           int window, float scale, cudaStream_t st) {
 #define FLASH_MMA_KD(KD)                                                   \
   if (D <= 16 * KD)                                                        \
     return launch_kd<T, KD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,     \
-                            causal, window, st);
+                            causal, window, scale, st);
   FLASH_MMA_KD(1)
   FLASH_MMA_KD(2)
   FLASH_MMA_KD(4)
@@ -349,14 +349,15 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 // 2 f16; anything else is refused.
 int flash_fwd_mma(const void* q, const void* k, const void* v, void* out,
                   void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                  int causal, int window, int dtype, cudaStream_t st) {
+                  int causal, int window, int dtype, float scale,
+                  cudaStream_t st) {
   switch (dtype) {
     case 1:
       return launch<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                                   causal, window, st);
+                                   causal, window, scale, st);
     case 2:
       return launch<__half>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                            causal, window, st);
+                            causal, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -482,7 +482,7 @@ template <typename T, int NB, int KS>
 int launch_nb(const void* q, const void* k, const void* v, void* out,
               void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
               int causal, int window, CUtensorMapDataType ty,
-              cudaStream_t stream) {
+              float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, to;
@@ -513,7 +513,7 @@ int launch_nb(const void* q, const void* k, const void* v, void* out,
   const long long n_groups = (pairs + most - 1) / most;
   const long long group = std::min(
       pairs, ((pairs + n_groups - 1) / n_groups + G - 1) / G * G);
-  const float scale_log2 = (float)(1.0 / sqrt((double)D)) * kLog2e;
+  const float scale_log2 = scale * kLog2e;
   flash_fwd_wgmma_kernel<T, NB, KS>
       <<<(unsigned)(n_qt * pairs), kThreads, bytes, stream>>>(
           tq, tk, tv, to, (float*)lse, Sq, Skv, Hq, Hkv, D, causal, window,
@@ -524,15 +524,16 @@ int launch_nb(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
-           int window, CUtensorMapDataType ty, cudaStream_t st) {
+           int window, CUtensorMapDataType ty, float scale,
+           cudaStream_t st) {
   if (D <= kBox)
     return launch_nb<T, 1, 4>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                              causal, window, ty, st);
+                              causal, window, ty, scale, st);
   if (D <= 112)
     return launch_nb<T, 2, 7>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                              causal, window, ty, st);
+                              causal, window, ty, scale, st);
   return launch_nb<T, 2, 8>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                            causal, window, ty, st);
+                            causal, window, ty, scale, st);
 }
 
 }  // namespace
@@ -543,7 +544,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 int flash_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                     void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
                     int D, int causal, int window, int dtype,
-                    cudaStream_t st) {
+                    float scale, cudaStream_t st) {
   if (D % 8 != 0 || D < 8 || D > 2 * kBox) return (int)cudaErrorInvalidValue;
   for (const void* p : {q, k, v, (const void*)out})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
@@ -552,11 +553,12 @@ int flash_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
     case 1:
       return launch<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
                                    causal, window,
-                                   CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
+                                   CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scale,
+                                   st);
     case 2:
       return launch<__half>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
                             causal, window, CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                            st);
+                            scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -19,7 +19,9 @@ Each walks the kv tiles alive under the causal/window mask for its q tile
 ``["flash_fwd.mma"]`` when it took that route; nowhere else.
 
 Arithmetic, on every route: QK^T in f32 (from f32 operands, or as exact f32
-products of 16-bit ones), masked entries at NEG_INF = -1e30 (not -inf), p
+products of 16-bit ones), then times the scale in f32 (the caller's
+``scale``, by default 1/sqrt(D); q is never scaled in its own dtype),
+masked entries at NEG_INF = -1e30 (not -inf), p
 cast to the input dtype before PV, the sum l clamped at 1e-37, so wholly
 masked rows give finite numbers as the reference's do.  GQA maps kv head =
 q head // (Hq / Hkv).  Like the SSD launch, the launch raises when grad
@@ -35,7 +37,8 @@ head dim a (query, key) pair alive under the mask (`live_pairs`), so
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -61,11 +64,12 @@ def reset_launches() -> None:
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's arithmetic as a brick scan in torch ops."""
     return brick_fwd(q, k, v, causal, window, PLAIN_BLOCK, PLAIN_BLOCK,
-                     f32_scores=True)
+                     f32_scores=True, scale=scale)
 
 
 def flash_route(dtype: torch.dtype, D: int, *ptrs: int) -> str:
@@ -127,7 +131,8 @@ def block_order(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int
 
 
 def _launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool, window: int, entry: str = "launch"
+                      causal: bool, window: int, entry: str = "launch",
+                      scale: Optional[float] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -148,12 +153,15 @@ def _launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     if Skv == 0:
         raise ValueError("flash_fwd needs at least one key")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     route = {"launch": flash_route(q.dtype, D, *ptrs), "v1_launch": "v1",
              "v2_launch": "mma"}[entry]
     rc = getattr(lib(), f"flash_fwd_{entry}")(
         *ptrs, lse.data_ptr(), B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
-        int(window), DTYPE_CODE[q.dtype], stream(q.device))
+        int(window), DTYPE_CODE[q.dtype], float(scale),
+        stream(q.device))
     check(rc, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     if route != "v1":
@@ -162,21 +170,23 @@ def _launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_fwd_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 causal: bool = True, window: int = 0
+                 causal: bool = True, window: int = 0,
+                 scale: Optional[float] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA-core kernel (`csrc/flash_fwd.cu`) at any dtype, CUDA
     tensors only: the yardstick that the tensor-core routes are timed
     against.  No model path calls it."""
-    return _launch_flash_fwd(q, k, v, causal, window, "v1_launch")
+    return _launch_flash_fwd(q, k, v, causal, window, "v1_launch", scale)
 
 
 def flash_fwd_v2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 causal: bool = True, window: int = 0
+                 causal: bool = True, window: int = 0,
+                 scale: Optional[float] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The mma.sync kernel (`csrc/flash_fwd_mma.cu`) at any bf16 / f16
     shape, CUDA tensors only: the yardstick that the wgmma kernel is timed
     against, in turns.  No model path calls it."""
-    return _launch_flash_fwd(q, k, v, causal, window, "v2_launch")
+    return _launch_flash_fwd(q, k, v, causal, window, "v2_launch", scale)
 
 
 def live_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
@@ -212,13 +222,13 @@ def flash_fwd_flops(B: int, Sq: int, Skv: int, Hq: int, D: int,
 @torch.library.custom_op("repro_torch::flash_fwd", mutates_args=(),
                          device_types="cuda")
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool, window: int
+                  causal: bool, window: int, scale: Optional[float] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return _launch_flash_fwd(q, k, v, causal, window)
+    return _launch_flash_fwd(q, k, v, causal, window, scale=scale)
 
 
 @_flash_fwd_op.register_fake
-def _(q, k, v, causal, window):
+def _(q, k, v, causal, window, scale=None):
     B, Sq, Hq, D = q.shape
     if k.dtype != q.dtype or v.dtype != q.dtype or q.dtype not in FLOAT_TYPES:
         raise TypeError(f"flash_fwd: q, k, v in one of {FLOAT_TYPES}, got "
@@ -238,14 +248,16 @@ def _(q_shape, k_shape, v_shape, causal, window, *args, **kwargs) -> int:
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0
+              causal: bool = True, window: int = 0,
+              scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (out (B,Sq,Hq,D) in q's
-    dtype, lse (B,Sq,Hq) f32).  CUDA tensors launch the kernel (or raise);
-    meta tensors take the op's fake; CPU tensors take
-    `flash_fwd_plain`."""
+    dtype, lse (B,Sq,Hq) f32), the scores scaled by ``scale`` (None:
+    1/sqrt(D)).  CUDA tensors launch the kernel (or raise); meta tensors
+    take the op's fake; CPU tensors take `flash_fwd_plain`."""
     if kernel_op(q, k, v):
         refuse_grad("flash_fwd", q, k, v)
         return torch.ops.repro_torch.flash_fwd(q, k, v, bool(causal),
-                                               int(window))
-    return flash_fwd_plain(q, k, v, causal=causal, window=window)
+                                               int(window), scale)
+    return flash_fwd_plain(q, k, v, causal=causal, window=window,
+                           scale=scale)

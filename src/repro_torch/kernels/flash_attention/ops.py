@@ -14,7 +14,7 @@ accumulates dq, dk and dv in f32, for either forward.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,11 +46,12 @@ def _pad_seq(x: torch.Tensor, c: int) -> torch.Tensor:
 def brick_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0, cq: int = 1024,
               ck: int = 1024, *, softcap: float = 0.0,
-              f32_scores: bool = False
+              f32_scores: bool = False, scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Online-softmax attention over the live bricks.  q: (B,Sq,Hq,D);
     k/v: (B,Skv,Hkv,D).  Returns (out (B,Sq,Hq,D) in q's dtype, lse
-    (B,Sq,Hq) f32).
+    (B,Sq,Hq) f32).  The scores are scaled by ``scale`` (None:
+    1/sqrt(D)) in f32, after the product.
 
     The scores QK^T come out in q's dtype (as the reference's einsum gives
     them), or in f32 from f32 operands with ``f32_scores`` (as the kernel
@@ -66,7 +67,7 @@ def brick_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vc = vp.reshape(B, nk, ck, Hkv, D)
     if f32_scores:
         qc, kc = qc.float(), kc.float()
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     dev = q.device
     neg = torch.full((), NEG_INF, device=dev)
 
@@ -106,7 +107,8 @@ def brick_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def brick_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
               causal: bool = True, window: int = 0, cq: int = 1024,
-              ck: int = 1024, *, f32_scores: bool = False
+              ck: int = 1024, *, f32_scores: bool = False,
+              scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward of attention over the live bricks, from the forward's
     (out, lse (B,Sq,Hq) f32) and dout.  Returns (dq, dk, dv) in the
@@ -118,7 +120,7 @@ def brick_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     cq, ck = min(cq, Sq), min(ck, Skv)
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     qp, kp, vp = _pad_seq(q, cq), _pad_seq(k, ck), _pad_seq(v, ck)
     dop, outp = _pad_seq(dout, cq), _pad_seq(out, cq)
     nq, nk = qp.shape[1] // cq, kp.shape[1] // ck
@@ -168,11 +170,11 @@ def brick_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq_.to(q.dtype), dk_.to(k.dtype), dv_.to(v.dtype)
 
 
-def _flash_fwd(q, k, v, causal, window, cq, ck, impl):
+def _flash_fwd(q, k, v, causal, window, cq, ck, impl, scale):
     if impl == "pallas":
         from repro_torch.kernels.flash_attention.kernel import flash_fwd
-        return flash_fwd(q, k, v, causal=causal, window=window)
-    return brick_fwd(q, k, v, causal, window, cq, ck)
+        return flash_fwd(q, k, v, causal=causal, window=window, scale=scale)
+    return brick_fwd(q, k, v, causal, window, cq, ck, scale=scale)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -180,23 +182,27 @@ class FlashAttention(torch.autograd.Function):
     backward is `brick_bwd` on them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, cq, ck, impl):
-        out, lse = _flash_fwd(q, k, v, causal, window, cq, ck, impl)
+    def forward(ctx, q, k, v, causal, window, cq, ck, impl, scale=None):
+        out, lse = _flash_fwd(q, k, v, causal, window, cq, ck, impl, scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, window, cq, ck, impl == "pallas")
+        ctx.args = (causal, window, cq, ck, impl == "pallas", scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, cq, ck, f32_scores = ctx.args
+        causal, window, cq, ck, f32_scores, scale = ctx.args
         dq, dk, dv = brick_bwd(q, k, v, out, lse, dout.contiguous(), causal,
-                               window, cq, ck, f32_scores=f32_scores)
-        return dq, dk, dv, None, None, None, None, None
+                               window, cq, ck, f32_scores=f32_scores,
+                               scale=scale)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0, cq: int = 1024,
-                    ck: int = 1024, impl: str = "jnp") -> torch.Tensor:
-    """q: (B,Sq,Hq,D); k/v: (B,Skv,Hkv,D) -> (B,Sq,Hq,D)."""
-    return FlashAttention.apply(q, k, v, causal, window, cq, ck, impl)
+                    ck: int = 1024, impl: str = "jnp",
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,Sq,Hq,D); k/v: (B,Skv,Hkv,D) -> (B,Sq,Hq,D), the scores
+    scaled by ``scale`` (None: 1/sqrt(D))."""
+    return FlashAttention.apply(q, k, v, causal, window, cq, ck, impl,
+                                scale)

@@ -9,14 +9,17 @@ torch scan of `models.ssm`, which autograd differentiates directly.
 its Pallas scan; what jax differentiates there is the jnp chunked scan.
 So the backward recomputes `models.ssm.ssd_scan` on the saved inputs, in
 their dtypes, under grad mode and takes `torch.autograd.grad` of it: the
-same gradients as the torch path from the same inputs.  A gradient of the
-final state is taken too (the prefill's state).
+same gradients as the torch path from the same inputs, under an
+``ssd.backward`` span (on autograd's thread).  A gradient of the final
+state is taken too (the prefill's state).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from repro_torch.spans import span
 
 
 class SSDScan(torch.autograd.Function):
@@ -35,7 +38,7 @@ class SSDScan(torch.autograd.Function):
     def backward(ctx, dy, dfin):
         from repro_torch.models.ssm import ssd_scan as chunked_scan
         need = ctx.needs_input_grad[:5]
-        with torch.enable_grad():
+        with torch.enable_grad(), span("ssd.backward"):
             ins = [t.detach().requires_grad_(n)
                    for t, n in zip(ctx.saved_tensors, need)]
             y, fin = chunked_scan(*ins, chunk=ctx.chunk)

@@ -54,7 +54,7 @@ _SIGNATURES = {
     "match_requests_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                               _I, _I, _I, _P, _P, _P),
     "flash_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _P),
+                         _I, ctypes.c_float, _P),
     "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P),
 }

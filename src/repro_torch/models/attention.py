@@ -56,14 +56,18 @@ NEG_INF = -1e30
 # Parameter specs
 # --------------------------------------------------------------------------- #
 def attn_specs(cfg: ModelConfig, heads: Optional[int] = None,
-               kv_heads: Optional[int] = None, cross: bool = False) -> dict:
+               kv_heads: Optional[int] = None, cross: bool = False,
+               d_in: Optional[int] = None) -> dict:
+    """The projections' specs; ``d_in`` is the input's width where it is
+    not d_model (the Zamba2 block's concatenation), the output's is."""
     h = heads or cfg.num_heads
     kh = kv_heads or cfg.num_kv_heads
     d = cfg.head_dim
+    di = d_in or cfg.d_model
     specs = {
-        "wq": ParamSpec((cfg.d_model, h, d), ("embed", "heads", None)),
-        "wk": ParamSpec((cfg.d_model, kh, d), ("embed", "kv_heads", None)),
-        "wv": ParamSpec((cfg.d_model, kh, d), ("embed", "kv_heads", None)),
+        "wq": ParamSpec((di, h, d), ("embed", "heads", None)),
+        "wk": ParamSpec((di, kh, d), ("embed", "kv_heads", None)),
+        "wv": ParamSpec((di, kh, d), ("embed", "kv_heads", None)),
         "wo": ParamSpec((h, d, cfg.d_model), ("heads", None, "embed")),
     }
     if cfg.qk_norm and not cross:
@@ -74,6 +78,12 @@ def attn_specs(cfg: ModelConfig, heads: Optional[int] = None,
 
 def cross_attn_specs(cfg: ModelConfig) -> dict:
     return attn_specs(cfg, cross=True)
+
+
+def _scaled(scores: torch.Tensor, D: int, scale: Optional[float]
+            ) -> torch.Tensor:
+    """The scores times ``scale``; divided by sqrt(D) where it is None."""
+    return scores / math.sqrt(D) if scale is None else scores * scale
 
 
 def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
@@ -87,13 +97,15 @@ def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0,
-                   softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D)."""
+                   softcap: float = 0.0, scale: Optional[float] = None
+                   ) -> torch.Tensor:
+    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D).
+    The scores are scaled by ``scale`` (None: 1/sqrt(D))."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     q5 = q.reshape(B, Sq, Hkv, G, D)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", q5, k) / math.sqrt(D)
+    scores = _scaled(torch.einsum("bqkgd,bskd->bkgqs", q5, k), D, scale)
     scores = _softcap(scores, softcap).float()
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Skv, device=q.device)[None, :]
@@ -115,16 +127,18 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def brick_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     cq: int = 1024, ck: int = 2048,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, scale: Optional[float] = None
+                    ) -> torch.Tensor:
     """Blocked online-softmax attention over the needed bricks only."""
-    out, _ = brick_fwd(q, k, v, causal, window, cq, ck, softcap=softcap)
+    out, _ = brick_fwd(q, k, v, causal, window, cq, ck, softcap=softcap,
+                       scale=scale)
     return out
 
 
 # --------------------------------------------------------------------------- #
 # decode attention
 # --------------------------------------------------------------------------- #
-def _decode_attn_local(q, k, v, kpos, t, window, softcap):
+def _decode_attn_local(q, k, v, kpos, t, window, softcap, scale=None):
     """Attention of one token per sequence over its cache -> (o, m, l)
     un-normalised.  kpos: (B, Sc) positions of the cache slots (< 0 marks
     ring slots not yet written); t: (B,) each sequence's position."""
@@ -132,7 +146,7 @@ def _decode_attn_local(q, k, v, kpos, t, window, softcap):
     Hkv = k.shape[2]
     G = Hq // Hkv
     q5 = q.reshape(B, Sq, Hkv, G, D)
-    s = torch.einsum("bqkgd,bskd->bqkgs", q5, k) / math.sqrt(D)
+    s = _scaled(torch.einsum("bqkgd,bskd->bqkgs", q5, k), D, scale)
     s = _softcap(s, softcap).float()
     mask = (kpos <= t[:, None]) & (kpos >= 0)
     if window:
@@ -155,8 +169,8 @@ def per_seq(index, B: int, device) -> torch.Tensor:
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, t, *, window: int = 0,
                      ring: bool = False, softcap: float = 0.0,
-                     seq_axes=(), Sc: Optional[int] = None
-                     ) -> torch.Tensor:
+                     seq_axes=(), Sc: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, 1, Hq, D); caches: (B, S_c, Hkv, D); t = per-seq positions.
 
     ``ring=True`` treats the cache as a ring buffer of size S_c (sliding
@@ -180,7 +194,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     else:
         kpos = torch.broadcast_to(slots[None, :], (B, Sc_loc))
     o, m, l = _decode_attn_local(q, k_cache, v_cache, kpos, t, window,
-                                 softcap)
+                                 softcap, scale)
     if seq_axes:
         m_g = C.pmax(m, seq_axes, mesh)
         corr = torch.exp(m - m_g)
@@ -233,8 +247,9 @@ def _prefill_attention(cfg: ModelConfig, q, k, v, causal: bool,
                        window: int) -> torch.Tensor:
     """The prefill / train attention of ``cfg.attn_impl`` ("auto": flash
     above 1024 positions; the brick scan where a softcap rules flash
-    out)."""
+    out), its scores scaled by ``cfg.attn_scale`` (None: 1/sqrt(D))."""
     S = q.shape[1]
+    scale = cfg.attn_scale
     impl = cfg.attn_impl
     if impl == "auto":
         impl = "flash" if S > 1024 else "full"
@@ -245,13 +260,13 @@ def _prefill_attention(cfg: ModelConfig, q, k, v, causal: bool,
         return flash_attention(q, k, v, causal, window,
                                min(cfg.attn_chunk_q, S),
                                min(cfg.attn_chunk_kv, S),
-                               "pallas" if cfg.use_pallas else "jnp")
+                               "pallas" if cfg.use_pallas else "jnp", scale)
     if impl == "brick":
         return brick_attention(q, k, v, causal=causal, window=window,
                                cq=cfg.attn_chunk_q, ck=cfg.attn_chunk_kv,
-                               softcap=cfg.attn_logit_softcap)
+                               softcap=cfg.attn_logit_softcap, scale=scale)
     return full_attention(q, k, v, causal=causal, window=window,
-                          softcap=cfg.attn_logit_softcap)
+                          softcap=cfg.attn_logit_softcap, scale=scale)
 
 
 def group_of_heads(h0: int, n: int, rep: int):
@@ -392,14 +407,16 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                             mesh)
             out = decode_attention(qf, kc, vc, index, window=window,
                                    ring=ring, softcap=cfg.attn_logit_softcap,
-                                   seq_axes=sa, Sc=Sc)
+                                   seq_axes=sa, Sc=Sc,
+                                   scale=cfg.attn_scale)
             out = C.relayout(out, (b, None, None, None), q_spec, mesh)
         else:
             ca = entry_axes(c_spec[2])
             kc = kv_for_heads(cache["k"], qa_act, ca, Hq_eff, Hkv)
             vc = kv_for_heads(cache["v"], qa_act, ca, Hq_eff, Hkv)
             out = decode_attention(q, kc, vc, index, window=window,
-                                   ring=ring, softcap=cfg.attn_logit_softcap)
+                                   ring=ring, softcap=cfg.attn_logit_softcap,
+                                   scale=cfg.attn_scale)
     else:
         kq = kv_for_heads(k, qa_act, ka_act, Hq_eff, Hkv)
         vq = kv_for_heads(v, qa_act, ka_act, Hq_eff, Hkv)

@@ -407,3 +407,30 @@ def mlp_apply(params: dict, x: torch.Tensor, tp_sp: bool = False,
                 (shlib.current_dim("batch"),), "batch")[0], "model", None))
     out = torch.einsum("bsf,fd->bsd", h, params["wo"].to(dt))
     return reduce_to_residual(out, max_)
+
+
+# --------------------------------------------------------------------------- #
+# The Zamba2 shared block's MLP: gated, with a per-application adapter
+# --------------------------------------------------------------------------- #
+def adapter_specs(cfg: ModelConfig) -> dict:
+    """A rank-``shared_adapter_rank`` adapter of the gate and up
+    projections: ``a`` (d_model, r), then ``gate`` / ``up`` (r, d_ff)."""
+    r, dff = cfg.shared_adapter_rank, cfg.d_ff
+    return {"a": ParamSpec((cfg.d_model, r), ("embed", None)),
+            "gate": ParamSpec((r, dff), (None, "mlp")),
+            "up": ParamSpec((r, dff), (None, "mlp"))}
+
+
+def adapted_mlp(params: dict, adapter: dict, x: torch.Tensor
+                ) -> torch.Tensor:
+    """GELU(x Wg + (x A) Ag) * (x Wu + (x A) Au), then Wo (exact-erf GELU),
+    on one device: the shared block's MLP with its application's
+    adapter."""
+    dt = x.dtype
+    xa = torch.einsum("bsd,dr->bsr", x, adapter["a"].to(dt))
+    gate = torch.einsum("bsd,df->bsf", x, params["wi_gate"].to(dt)) + \
+        torch.einsum("bsr,rf->bsf", xa, adapter["gate"].to(dt))
+    up = torch.einsum("bsd,df->bsf", x, params["wi_up"].to(dt)) + \
+        torch.einsum("bsr,rf->bsf", xa, adapter["up"].to(dt))
+    return torch.einsum("bsf,fd->bsd", F.gelu(gate) * up,
+                        params["wo"].to(dt))

@@ -36,6 +36,12 @@ reference's `jax.checkpoint` of its scan body), so the backward
 recomputes them, the repeat's FSDP gather included; under "dots" the
 outputs of the products with no batch dimensions are saved instead
 (`_DotsPolicy`, the reference's `dots_with_no_batch_dims_saveable`).
+
+With ``cfg.shared_blocks`` (the published Zamba2 block, `shared_block`)
+the embedding's output ``x0`` goes down `run_groups` beside the
+residual, and each layer that applies a shared block is told its
+application number, which picks the block and is what the layer's own
+adapter and linear stand for.
 """
 from __future__ import annotations
 
@@ -74,6 +80,11 @@ def layer_param_specs(cfg: ModelConfig, lspec: LayerSpec,
     if decoder_cross:
         d["ln_cross"] = L.norm_spec(cfg.d_model)
         d["cross"] = attn_lib.cross_attn_specs(cfg)
+    if lspec.shared_attn and cfg.shared_blocks:
+        # the application's own linear and MLP adapter (`shared_block`)
+        d["shared_lin"] = ParamSpec((cfg.d_model, cfg.d_model),
+                                    ("embed", None))
+        d["adapter"] = L.adapter_specs(cfg)
     if lspec.mlp == "dense":
         d["ln_mlp"] = L.norm_spec(cfg.d_model)
         d["mlp"] = L.mlp_specs(cfg)
@@ -103,10 +114,22 @@ def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
 
 
 def shared_attn_specs(cfg: ModelConfig) -> dict:
+    """The shared attention over d_model, or with ``cfg.shared_blocks``
+    the published Zamba2 blocks stacked on a leading axis: ``ln`` over
+    concat(x, x0), ``attn`` from its 2 d_model to d_model, ``ln_mlp``,
+    ``mlp``."""
     sub = _shared_cfg(cfg)
-    return {"ln": L.norm_spec(cfg.d_model),
-            "attn": attn_lib.attn_specs(sub, heads=sub.num_heads,
-                                        kv_heads=sub.num_kv_heads)}
+    if not cfg.shared_blocks:
+        return {"ln": L.norm_spec(cfg.d_model),
+                "attn": attn_lib.attn_specs(sub, heads=sub.num_heads,
+                                            kv_heads=sub.num_kv_heads)}
+    block = {"ln": L.norm_spec(2 * cfg.d_model),
+             "attn": attn_lib.attn_specs(sub, heads=sub.num_heads,
+                                         kv_heads=sub.num_kv_heads,
+                                         d_in=2 * cfg.d_model),
+             "ln_mlp": L.norm_spec(cfg.d_model),
+             "mlp": L.mlp_specs(cfg)}
+    return _stack(block, cfg.shared_blocks)
 
 
 def model_param_specs(cfg: ModelConfig) -> dict:
@@ -206,14 +229,53 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
 # --------------------------------------------------------------------------- #
 # Forward
 # --------------------------------------------------------------------------- #
+def shared_block(cfg: ModelConfig, blocks: dict, p: dict, x: torch.Tensor,
+                 x0: torch.Tensor, app: int, *, mode: str, positions=None,
+                 cache=None, index=None
+                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """The published Zamba2 block at its application ``app`` (the running
+    count of the model's layers that apply one): block ``app`` mod
+    ``cfg.shared_blocks`` of the stacked ``blocks`` on concat(x, x0),
+    RMS norm, attention with the layer's shared K/V cache, RMS norm, the
+    gated MLP with the layer's adapter (``p["adapter"]``), no residual
+    inside; then the layer's linear ``p["shared_lin"]``.  Returns (what
+    the layer adds to its mixer's input, {"shared_k", "shared_v"} or
+    None).  One device: the block has no mesh layout."""
+    if shlib.current_mesh() is not None:
+        raise NotImplementedError("the Zamba2 shared block under a mesh")
+    with span("shared_block"):
+        blk = _index_tree(blocks, app % cfg.shared_blocks)
+        h = L.rms_norm(torch.cat([x, x0], dim=-1), blk["ln"], cfg.norm_eps)
+        sub_cache = ({"k": cache["shared_k"], "v": cache["shared_v"]}
+                     if cache and "shared_k" in cache else None)
+        h, nc = attn_lib.attention_block(
+            blk["attn"], h, _shared_cfg(cfg).replace(qk_norm=False),
+            mode=mode, positions=positions, cache=sub_cache, index=index)
+        h = L.rms_norm(h, blk["ln_mlp"], cfg.norm_eps)
+        h = L.adapted_mlp(blk["mlp"], p["adapter"], h)
+        h = torch.einsum("bsd,de->bse", h, p["shared_lin"].to(h.dtype))
+    return h, ({"shared_k": nc["k"], "shared_v": nc["v"]} if nc else None)
+
+
 def apply_layer(cfg: ModelConfig, lspec: LayerSpec, p: dict, x: torch.Tensor,
                 aux: torch.Tensor, *, shared_params=None, mode: str,
                 positions=None, cache=None, index=None, enc_kv=None,
-                causal: bool = True
+                causal: bool = True, x0=None, app: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
+    """One layer over the residual ``x``.  With ``cfg.shared_blocks`` a
+    layer that applies the shared block (`shared_block`, its application
+    number ``app``, ``x0`` the embedding's output) first adds the block's
+    output to its mixer's input: x + mixer(norm(x + block(x, x0)))."""
     new_cache: Dict[str, Any] = {}
+    mixer_in = x
+    if lspec.shared_attn and cfg.shared_blocks:
+        h, nc = shared_block(cfg, shared_params, p, x, x0, app, mode=mode,
+                             positions=positions, cache=cache, index=index)
+        mixer_in = x + h
+        if nc:
+            new_cache.update(nc)
     if lspec.mixer in ("attn", "attn_local"):
-        h = L.rms_norm(x, p["ln_mixer"], cfg.norm_eps)
+        h = L.rms_norm(mixer_in, p["ln_mixer"], cfg.norm_eps)
         sub_cache = ({"k": cache["k"], "v": cache["v"]}
                      if cache and "k" in cache else None)
         h, nc = attn_lib.attention_block(
@@ -223,7 +285,7 @@ def apply_layer(cfg: ModelConfig, lspec: LayerSpec, p: dict, x: torch.Tensor,
         if nc:
             new_cache.update(nc)
     elif lspec.mixer == "ssd":
-        h = L.rms_norm(x, p["ln_mixer"], cfg.norm_eps)
+        h = L.rms_norm(mixer_in, p["ln_mixer"], cfg.norm_eps)
         sub_cache = ({k: cache[k] for k in ("ssm", "conv_x", "conv_b",
                                             "conv_c")}
                      if cache and "ssm" in cache else None)
@@ -233,7 +295,8 @@ def apply_layer(cfg: ModelConfig, lspec: LayerSpec, p: dict, x: torch.Tensor,
         if nc:
             new_cache.update(nc)
 
-    if lspec.shared_attn and shared_params is not None:
+    if lspec.shared_attn and shared_params is not None \
+            and not cfg.shared_blocks:
         h = L.rms_norm(x, shared_params["ln"], cfg.norm_eps)
         scfg = _shared_cfg(cfg).replace(qk_norm=False)
         sub_cache = ({"k": cache["shared_k"], "v": cache["shared_v"]}
@@ -329,16 +392,19 @@ def _write_cross(cfg: ModelConfig, lc: dict, enc_kv) -> None:
 
 def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
                mode: str, positions=None, caches=None, index=None,
-               shared_params=None, enc_out=None, causal: bool = True
+               shared_params=None, enc_out=None, causal: bool = True,
+               x0=None
                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Run all layer groups, repeat by repeat.  Returns (x, aux, caches):
     the caches given, updated in place, or None without caches.
     ``enc_out`` (B, S_src, d), whole sequences, feeds the decoder layers'
-    cross attention."""
+    cross attention; ``x0``, the embedding's output, the Zamba2 shared
+    blocks, each layer that applies one told its application number."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cross = cfg.is_encdec and enc_out is not None
     remat = mode == "train" and cfg.remat != "none"
     context_fn = _dots_contexts if cfg.remat == "dots" else noop_context_fn
+    app = 0                   # shared-block applications so far
     for gi, g in enumerate(groups):
         gp = params[f"g{gi}"]
         gc = caches[f"g{gi}"] if caches is not None else None
@@ -355,8 +421,9 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
                 x, aux = checkpoint(_remat_body(), cfg, g.layers,
                                     _index_tree(gp, r), plan, x, aux,
                                     shared_params, positions, enc_out,
-                                    causal, use_reentrant=False,
+                                    causal, x0, app, use_reentrant=False,
                                     context_fn=context_fn)
+                app += sum(ls.shared_attn for ls in g.layers)
                 continue
             p_slice = _gather_fsdp(_index_tree(gp, r), plan)
             c_slice = _index_tree(gc, r) if gc is not None else None
@@ -368,7 +435,8 @@ def run_groups(cfg: ModelConfig, groups, params: dict, x: torch.Tensor, *,
                     cfg, ls, p_slice[key], x, aux,
                     shared_params=shared_params, mode=mode,
                     positions=positions, cache=lc, index=index,
-                    enc_kv=enc_kv, causal=causal)
+                    enc_kv=enc_kv, causal=causal, x0=x0, app=app)
+                app += ls.shared_attn
                 if (lc is not None and "cross_k" in lc and enc_kv is not None
                         and mode == "prefill"):
                     _write_cross(cfg, lc, enc_kv)
@@ -473,15 +541,19 @@ def _dots_contexts():
 
 def _repeat_body(cfg: ModelConfig, layers, p_slice: dict, x: torch.Tensor,
                  aux: torch.Tensor, shared_params, positions, enc_out,
-                 causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                 causal: bool, x0=None, app: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One repeat of a group's layers in train mode (no caches): the unit
-    that activation checkpointing saves the input of and recomputes."""
+    that activation checkpointing saves the input of and recomputes
+    (``app``: the shared-block applications before it)."""
     for pidx, ls in enumerate(layers):
         lp = p_slice[f"L{pidx}"]
         x, aux, _ = apply_layer(
             cfg, ls, lp, x, aux, shared_params=shared_params, mode="train",
             positions=positions, causal=causal,
-            enc_kv=_layer_enc_kv(cfg, lp, None, enc_out, "train"))
+            enc_kv=_layer_enc_kv(cfg, lp, None, enc_out, "train"), x0=x0,
+            app=app)
+        app += ls.shared_attn
     return x, aux
 
 
@@ -550,7 +622,8 @@ def backbone(cfg: ModelConfig, params: dict, batch: dict, *,
                                  mode=mode, positions=positions,
                                  caches=dec_caches, index=index,
                                  shared_params=params.get("shared_attn"),
-                                 enc_out=enc_out, causal=True)
+                                 enc_out=enc_out, causal=True,
+                                 x0=x if cfg.shared_blocks else None)
     new_caches = None
     if new_dec is not None:
         if index is not None:   # decode: advance each sequence's position

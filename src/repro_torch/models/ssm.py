@@ -6,6 +6,9 @@ a masked (semiseparable) matmul; across chunks a small recurrence on the
 version (the ``use_pallas=False`` path); with ``cfg.use_pallas`` the block
 calls the CUDA kernel through `repro_torch.kernels.ssd.ops.ssd` (the
 `SSDScan` autograd Function, whose backward is this chunked scan's).
+``cfg.ssm_conv_bias`` adds a bias to each causal convolution before its
+SiLU.  The gated RMS norm is taken over each B/C group's d_inner / G
+channels alone, as Mamba2's is (with one group, over all of d_inner).
 
 Under a mesh (`parallel.sharding.sharding_ctx`) `ssd_block` runs on this
 rank's SSM heads: ``wz`` / ``wx`` / ``conv_x`` /
@@ -28,13 +31,21 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.parallel import sharding as shlib
 from repro_torch.parallel.sharding import ParamSpec
+from repro_torch.spans import spanned
 
 
 def ssd_specs(cfg: ModelConfig) -> dict:
     d, di = cfg.d_model, cfg.d_inner
     g, n, h, w = (cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads,
                   cfg.ssm_conv_width)
-    return {
+    bias = {}
+    if cfg.ssm_conv_bias:
+        # each conv's bias as a (1, C) row, the filter's (W, C) layout
+        bias = {"conv_x_bias": ParamSpec((1, di), (None, "ssm_inner"),
+                                         scale=0.5),
+                "conv_B_bias": ParamSpec((1, g * n), (None, None), scale=0.5),
+                "conv_C_bias": ParamSpec((1, g * n), (None, None), scale=0.5)}
+    return {**bias,
         "wz": ParamSpec((d, di), ("embed", "ssm_inner")),
         "wx": ParamSpec((d, di), ("embed", "ssm_inner")),
         "wB": ParamSpec((d, g * n), ("embed", None)),
@@ -53,9 +64,11 @@ def ssd_specs(cfg: ModelConfig) -> dict:
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 state: Optional[torch.Tensor] = None
+                 state: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal conv along seq.  x: (B,S,C); w: (W,C).
+    """Depthwise causal conv along seq, plus ``bias`` (1, C) where given,
+    then SiLU.  x: (B,S,C); w: (W,C).
 
     Returns (y, new_state) where state holds the last W-1 inputs."""
     W, S = w.shape[0], x.shape[1]
@@ -64,6 +77,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = sum(xp[:, i:i + S] * w[i] for i in range(W))
+    if bias is not None:
+        y = y + bias.to(y.dtype)
     new_state = xp[:, xp.shape[1] - (W - 1):]
     return F.silu(y), new_state
 
@@ -141,6 +156,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), carry
 
 
+@spanned("ssd_block")
 def ssd_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               mode: str = "train", cache: Optional[dict] = None
               ) -> Tuple[torch.Tensor, Optional[dict]]:
@@ -188,9 +204,12 @@ def ssd_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if mode == "decode":
         if cache is None or S != 1:
             raise ValueError("decode takes one token and a cache")
-        xs, conv_x = _conv_step(xs, params["conv_x"], cache["conv_x"])
-        Bp, conv_b = _conv_step(Bp, params["conv_B"], cache["conv_b"])
-        Cp, conv_c = _conv_step(Cp, params["conv_C"], cache["conv_c"])
+        xs, conv_x = _conv_step(xs, params["conv_x"], cache["conv_x"],
+                                params.get("conv_x_bias"))
+        Bp, conv_b = _conv_step(Bp, params["conv_B"], cache["conv_b"],
+                                params.get("conv_B_bias"))
+        Cp, conv_c = _conv_step(Cp, params["conv_C"], cache["conv_c"],
+                                params.get("conv_C_bias"))
         xh = xs.reshape(B, H_loc, Pd)
         Bg = groups(Bp.reshape(B, G, N), 1)
         rep = H_loc // Bg.shape[1]
@@ -207,9 +226,12 @@ def ssd_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         new = {"ssm": st, "conv_x": conv_x, "conv_b": conv_b,
                "conv_c": conv_c}
     else:
-        xs, conv_x = _causal_conv(xs, params["conv_x"].to(dt_))
-        Bp, conv_b = _causal_conv(Bp, params["conv_B"].to(dt_))
-        Cp, conv_c = _causal_conv(Cp, params["conv_C"].to(dt_))
+        xs, conv_x = _causal_conv(xs, params["conv_x"].to(dt_),
+                                  bias=params.get("conv_x_bias"))
+        Bp, conv_b = _causal_conv(Bp, params["conv_B"].to(dt_),
+                                  bias=params.get("conv_B_bias"))
+        Cp, conv_c = _causal_conv(Cp, params["conv_C"].to(dt_),
+                                  bias=params.get("conv_C_bias"))
         xh = xs.reshape(B, S, H_loc, Pd)
         Bv = groups(Bp.reshape(B, S, G, N), 2)
         Cv = groups(Cp.reshape(B, S, G, N), 2)
@@ -230,6 +252,9 @@ def ssd_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     yz = y.to(dt_) * F.silu(z.float()).to(dt_)
     if ia:
+        if G > 1:
+            raise NotImplementedError("the gated norm over each of several "
+                                      "groups of a sharded d_inner")
         # the gated RMS norm over the whole d_inner: its mean square is a
         # psum of the local sums of squares
         ss = torch.sum(yz.square(), dim=-1, keepdim=True,
@@ -238,16 +263,22 @@ def ssd_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         yz = yz * torch.rsqrt(var + cfg.norm_eps).to(dt_) * (
             1.0 + params["gate_norm"].to(dt_))
     else:
-        yz = rms_norm(yz, params["gate_norm"], cfg.norm_eps)
+        # over each group's d_inner / G channels alone
+        yz = rms_norm(yz.unflatten(-1, (G, -1)),
+                      params["gate_norm"].view(G, -1),
+                      cfg.norm_eps).flatten(-2)
     out = torch.einsum("bse,ed->bsd", yz, params["wo"].to(dt_))
     return reduce_to_residual(out, ia), cache
 
 
-def _conv_step(x1: torch.Tensor, w: torch.Tensor, state: torch.Tensor
+def _conv_step(x1: torch.Tensor, w: torch.Tensor, state: torch.Tensor,
+               bias: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-token causal conv.  x1: (B,1,C); state: (B,W-1,C)."""
     xp = torch.cat([state.to(x1.dtype), x1], dim=1)               # (B,W,C)
     y = torch.einsum("bwc,wc->bc", xp, w.to(x1.dtype))[:, None]
+    if bias is not None:
+        y = y + bias.to(y.dtype)
     return F.silu(y), xp[:, 1:].to(state.dtype)
 
 

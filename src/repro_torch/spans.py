@@ -22,7 +22,11 @@ autograd's device thread, under its nodes), ``adamw_update``,
 `models.moe.moe_block`: ``moe.route``, ``moe.dispatch``, ``moe.experts``
 and ``moe.combine``; ``moe.backward``, the backwards of the block's two
 reads through its slot map (`models.moe._Dispatch`, `_Combine`), entered
-from autograd's thread, two a MoE layer and step.  Records:
+from autograd's thread, two a MoE layer and step; ``shared_block``
+(`models.model.shared_block`, one a Zamba2 block application: its count
+is the applications a call), ``ssd_block`` (`models.ssm.ssd_block`) and
+``ssd.backward`` (`kernels.ssd.ops.SSDScan`'s backward, on autograd's
+thread, one an SSD layer and step).  Records:
 ``moe.slots`` (`models.moe`)."""
 from __future__ import annotations
 

@@ -35,11 +35,12 @@ def _attention_archs():
 @pytest.mark.parametrize("arch", _attention_archs())
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_every_registered_head_dim_takes_its_route(arch, dtype):
-    """The card's configs: 64, 112 and 128 on wgmma, gemma3's 240 on
-    mma.sync (a head dim past two 64-column boxes)."""
+    """The card's configs: 64, 112 and 128 on wgmma, zamba2-7b-instruct's
+    224 and gemma3's 240 on mma.sync (a head dim past two 64-column
+    boxes)."""
     D = get_config(arch).head_dim
     want = "wgmma" if D in (64, 112, 128) else "mma"
-    assert D in (64, 112, 128, 240), (arch, D)
+    assert D in (64, 112, 128, 224, 240), (arch, D)
     assert fk.flash_route(dtype, D, *ALIGNED) == want
 
 
